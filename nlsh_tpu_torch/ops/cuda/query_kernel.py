@@ -1,0 +1,514 @@
+"""Serving layout, grouped prep and the grouped scoring kernels.
+
+Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
+
+* **Layout** (:func:`serving_layout`): corpus rows permuted into bucket
+  order, each bucket starting at an ``align``-row boundary, and
+  metric-extended so that a higher score is always nearer: cosine rows
+  are L2-normalised (score = q.c); euclidean rows stay raw, queries are
+  doubled and ``||c||^2`` rides a separate ``norms`` array (score =
+  2q.c - ||c||^2).  ``n_aligned`` keeps the JAX package's ``+cap`` slack
+  and rounding to ``block_rows``, so the arrays compare bitwise.
+* **Grouped prep** (:func:`_grouped_prep_v2`): sorts the (query, probe)
+  events by bucket and builds the group tables: one group per
+  (bucket block, <= G probing queries).  Torch ops, not kernels.
+* **Kernels**: K1 :func:`grouped_scores_topk` (fused scores, mask and
+  per-row top-kk) and K2 :func:`grouped_scores` (raw panels), written in
+  CUDA C++ in ``csrc/grouped_scores.cu``.  Each has its plain PyTorch
+  version beside it (``*_plain``).  A wrapper runs the plain version
+  only for tensors on the CPU; on a CUDA tensor it launches its kernel
+  or raises.
+
+Parity notes (where a port of this module breaks most easily):
+
+* ties — the JAX kernel keeps the lowest lane among equal scores and
+  ``lax.top_k`` the lowest index; ``torch.topk`` promises no order, so
+  every selection here is a stable sort, sliced;
+* ``mode="drop"`` scatters — torch has none: scatter into one sentinel
+  row past the end and slice it off;
+* ``searchsorted(side="right")`` is ``right=True`` and
+  ``associative_scan(max)`` is ``torch.cummax``;
+* storage stays int32 as in JAX; indices widen to int64 only to index.
+
+int8 layouts and the numpy ``*_host`` layout functions are still to be ported
+(ROADMAP.md Queue 1, item 2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+LANE = 128         # feature dim padded to a multiple (the TPU lane width)
+BLOCK_ROWS = 512   # default rows per grouped-engine block
+GROUP_Q = 8        # the prep's default queries per group
+_GROUP_EB = 8      # group tables round up to a multiple of this
+ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
+
+# launches of each kernel; a wrapper adds one where it launches
+KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0}
+
+# what csrc/grouped_scores.cu takes; the wrappers check it before a launch
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # its `dtype` argument
+_TILE = 128                # its kTileRows and kTileK
+_MAX_G = 32                # its kMaxG
+_SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may use on sm_90
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _br(block_rows: int | None) -> int:
+    return block_rows if block_rows else BLOCK_ROWS
+
+
+class ServingLayout(NamedTuple):
+    """Bucket-contiguous, metric-extended corpus for the serving path."""
+
+    data: torch.Tensor        # (n_aligned, d_pad) f32/bf16, bucket-major
+    row_map: torch.Tensor     # (n_aligned,) int32 -> corpus row, -1 pad
+    starts: torch.Tensor      # (n_buckets,) int32 aligned bucket offsets
+    counts: torch.Tensor      # (n_buckets,) int32
+    cap: int                  # rows served per probed bucket
+    d_pad: int
+    align: int                # bucket start alignment in rows
+    metric: str
+    total_blocks: int = 0     # sum_b ceil(min(count, cap) / block_rows)
+    norms: torch.Tensor | None = None  # (n_aligned,) f32 ||c||^2, euclidean
+    block_rows: int = 0       # rows per grouped-engine block; 0 = default
+    scale: torch.Tensor | None = None  # per-row int8 scale (not ported yet)
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_map.shape[0]
+
+    @property
+    def br(self) -> int:
+        return _br(self.block_rows)
+
+
+def _scatter_drop(n: int, index: torch.Tensor, values: torch.Tensor,
+                  fill) -> torch.Tensor:
+    """``full((n, ...), fill).at[index].set(values, mode="drop")``: rows
+    with an index outside ``[0, n)`` land in a sentinel row past the end,
+    which is sliced off."""
+    index = torch.where((index >= 0) & (index < n), index, n)
+    out = torch.full((n + 1,) + values.shape[1:], fill, dtype=values.dtype,
+                     device=values.device)
+    out[index] = values
+    return out[:n]
+
+
+def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
+                  metric: str, dtype=torch.float32, align: int | None = None):
+    """Layout core: ``(data, row_map, aligned_starts, norms)`` with shapes
+    ``(n_aligned, d_pad)`` / ``(n_aligned,)``; ``norms`` is None for
+    cosine."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{dtype} layouts are not ported yet (ROADMAP.md Queue 1, item 2)")
+    n, _ = corpus.shape
+    align = cap if align is None else align
+    if metric == "cosine":
+        nrm = torch.linalg.vector_norm(corpus, dim=1, keepdim=True)
+        ext = corpus / torch.clamp(nrm, min=1e-12)
+        sq = None
+    elif metric in ("euclidean", "sq_euclidean"):
+        ext = corpus
+        sq = torch.sum(corpus * corpus, dim=1)
+    else:
+        raise ValueError(f"unsupported serving metric {metric!r}")
+    d_ext = ext.shape[1]
+    d_pad = _round_up(d_ext, LANE)
+
+    counts = counts.long()
+    starts = starts.long()
+    aligned_sizes = ((counts + align - 1) // align) * align
+    aligned_starts = torch.cumsum(aligned_sizes, 0) - aligned_sizes
+    i = torch.arange(n, device=corpus.device)
+    bucket_of = torch.searchsorted(starts, i, right=True) - 1
+    aligned_pos = aligned_starts[bucket_of] + (i - starts[bucket_of])
+    # rows past the real count (sentinel-hashed rows sort to the tail) drop
+    aligned_pos = torch.where(i < counts.sum(), aligned_pos, n_aligned)
+
+    rid = row_ids.long()
+    sorted_ext = torch.zeros((n, d_pad), dtype=dtype, device=corpus.device)
+    sorted_ext[:, :d_ext] = ext[rid].to(dtype)
+    data = _scatter_drop(n_aligned, aligned_pos, sorted_ext, 0)
+    row_map = _scatter_drop(n_aligned, aligned_pos, row_ids.to(torch.int32), -1)
+    norms = None
+    if sq is not None:
+        norms = _scatter_drop(n_aligned, aligned_pos,
+                              sq[rid].to(torch.float32), 0)
+    return data, row_map, aligned_starts.to(torch.int32), norms
+
+
+def round_cap(cap: int, block_rows: int | None = None) -> int:
+    """cap as a whole number of ``block_rows``-row blocks."""
+    br = _br(block_rows)
+    return max(_round_up(cap, br), br)
+
+
+def aligned_rows(counts, cap: int, align: int | None = None) -> int:
+    """Row count of a layout for given bucket counts, ``+ cap`` slack."""
+    align = cap if align is None else align
+    counts = np.asarray(counts.cpu() if torch.is_tensor(counts) else counts)
+    aligned_sizes = ((counts.astype(np.int64) + align - 1) // align) * align
+    return int(aligned_sizes.sum()) + cap
+
+
+def serving_layout(table, corpus: torch.Tensor, metric: str = "cosine",
+                   cap: int | None = None, dtype=torch.float32,
+                   align: int | None = None, block_rows: int | None = None,
+                   device=None) -> ServingLayout:
+    """Build the serving layout from a CSR bucket table on ``device``
+    (default: the corpus's).  ``cap`` (default: the largest bucket) is
+    rounded up to whole blocks; buckets past it are truncated at query
+    time.  ``dtype=torch.bfloat16`` halves the streamed bytes; queries
+    stay f32 either way."""
+    device = corpus.device if device is None else torch.device(device)
+    br = _br(block_rows)
+    counts_np = table.counts.cpu().numpy()
+    if cap is None:
+        cap = int(counts_np.max())
+    cap = round_cap(cap, br)
+    align = cap if align is None else max(_round_up(align, 8), 8)
+    n_aligned = _round_up(aligned_rows(counts_np, cap, align=align), br)
+    total_blocks = int((-(-np.minimum(counts_np, cap) // br)).sum())
+    counts = table.counts.to(device)
+    data, row_map, starts, norms = layout_arrays(
+        table.row_ids.to(device), table.starts.to(device), counts,
+        corpus.to(device), cap=cap, n_aligned=n_aligned, metric=metric,
+        dtype=dtype, align=align,
+    )
+    return ServingLayout(
+        data=data, row_map=row_map, starts=starts, counts=counts, cap=cap,
+        d_pad=data.shape[1], align=align, metric=metric,
+        total_blocks=total_blocks, norms=norms, block_rows=br,
+    )
+
+
+def extend_queries(layout: ServingLayout, queries: torch.Tensor) -> torch.Tensor:
+    """Metric-extend and zero-pad queries to ``(nq, d_pad)`` f32 to match
+    the layout (cosine: L2-normalised; euclidean: doubled)."""
+    nq, d = queries.shape
+    if layout.metric == "cosine":
+        norms = torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+        ext = queries / torch.clamp(norms, min=1e-12)
+    else:
+        ext = 2.0 * queries
+    out = torch.zeros((nq, layout.d_pad), dtype=torch.float32,
+                      device=queries.device)
+    out[:, :d] = ext.to(torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# grouped prep: sort probe events by bucket, build the group tables
+# ---------------------------------------------------------------------------
+
+def round_group_override(g_exact: int, static_bound: int) -> int:
+    """Round an exact group bound up to ``_GROUP_EB`` times a power of
+    two, clamped to the static bound."""
+    units = max(-(-int(g_exact) // _GROUP_EB), 1)
+    return int(min(_GROUP_EB * (1 << (units - 1).bit_length()),
+                   int(static_bound)))
+
+
+def grouped_exact_bound(counts, probe_ids, probe_valid, cap: int,
+                        group_q: int, block_rows: int | None = None) -> int:
+    """EXACT group count of :func:`_grouped_prep_v2` for a concrete
+    probe batch, on the host: ``sum_b nb_b * ceil(m_b / G)``."""
+    br = _br(block_rows)
+    counts = counts.cpu().numpy()
+    pid = probe_ids.cpu().numpy().reshape(-1)
+    pv = probe_valid.cpu().numpy().reshape(-1)
+    n_buckets = counts.shape[0]
+    ok = pv & (pid >= 0) & (pid < n_buckets)
+    m = np.bincount(pid[ok], minlength=n_buckets)
+    nb = -(-np.minimum(counts, cap) // br)
+    return int(np.sum(nb * -(-m // group_q)))
+
+
+def grouped_static_bound(n_events: int, max_blocks: int, total_blocks: int,
+                         group_q: int) -> int:
+    """Upper bound on the group count for ANY batch of ``n_events``
+    probe events: ``E*maxB/G + min(total_blocks, E*maxB)``."""
+    block_events = n_events * max_blocks
+    probed_blocks = min(total_blocks, block_events) if total_blocks > 0 \
+        else block_events
+    return int(-(-block_events // group_q) + probed_blocks)
+
+
+def _probe_counts(layout_counts, probe_ids, probe_valid, cap: int):
+    """Clipped bucket ids and their served counts (0 on invalid probes)."""
+    n_buckets = layout_counts.shape[0]
+    safe = torch.clamp(probe_ids.long(), 0, n_buckets - 1)
+    counts = torch.where(probe_valid,
+                         torch.clamp(layout_counts[safe], max=cap), 0)
+    return safe, counts
+
+
+def _sorted_probe_events(layout_starts, layout_counts, probe_ids,
+                         probe_valid, cap: int):
+    """Sort (query, probe) events by bucket id.  Returns per sorted event
+    (bucket key, qidx, rank in bucket, bucket multiplicity), the
+    histogram, the order and the served counts."""
+    nq, n_probes = probe_ids.shape
+    n_buckets = layout_counts.shape[0]
+    safe, counts = _probe_counts(layout_counts, probe_ids, probe_valid, cap)
+    key = torch.where(counts > 0, safe, n_buckets).reshape(-1)   # (E,)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    sq = torch.arange(nq, device=key.device).repeat_interleave(n_probes)[order]
+    pos = torch.arange(sk.shape[0], device=key.device)
+    unique = torch.ones_like(sk, dtype=torch.bool)
+    unique[1:] = sk[1:] != sk[:-1]
+    first = torch.cummax(torch.where(unique, pos, -1), 0).values
+    rank = pos - first
+    hist = torch.bincount(key, minlength=n_buckets + 1)
+    m = hist[torch.clamp(sk, 0, n_buckets)]
+    return sk, sq, rank, m, hist, order, counts
+
+
+def _bucket_blocks(layout_counts, cap: int, block_rows: int | None = None):
+    """Blocks per bucket under the cap: ceil(min(count, cap) / block_rows)."""
+    capped = torch.clamp(layout_counts.long(), max=cap)
+    return -(-capped // _br(block_rows))
+
+
+def count_groups_v2(layout_starts, layout_counts, probe_ids, probe_valid,
+                    cap: int, group_q: int = GROUP_Q,
+                    block_rows: int | None = None) -> torch.Tensor:
+    """Closed-form group count, no sort: sum_b nb_b * ceil(m_b / G)."""
+    n_buckets = layout_counts.shape[0]
+    safe, counts = _probe_counts(layout_counts, probe_ids, probe_valid, cap)
+    key = torch.where(counts > 0, safe, n_buckets).reshape(-1)
+    hist = torch.bincount(key, minlength=n_buckets + 1)[:n_buckets]
+    nb = _bucket_blocks(layout_counts, cap, block_rows)
+    return torch.sum(nb * (-(-hist // group_q))).to(torch.int32)
+
+
+def _grouped_prep_v2(layout_starts, layout_counts, probe_ids, probe_valid,
+                     queries_ext, cap: int, g_total: int, max_blocks: int,
+                     group_q: int = GROUP_Q, block_rows: int | None = None):
+    """Group tables and the event -> row map, with only an (nq*P)-key sort.
+
+    Returns ``(grp_block (g,) i32, grp_qvecs (g, G, d_pad) f32,
+    grp_cnt (g, G) i32, ev_row (E, maxB) i32, ev_block (E, maxB) i32,
+    ev_valid (E, maxB) bool)``; groups past ``g_total`` are dropped, as
+    in the JAX package."""
+    br = _br(block_rows)
+    nq, n_probes = probe_ids.shape
+    n_buckets = layout_counts.shape[0]
+    dev = probe_ids.device
+    sk, sq, rank, _, hist, order, _ = _sorted_probe_events(
+        layout_starts, layout_counts, probe_ids, probe_valid, cap)
+    nb_bucket = _bucket_blocks(layout_counts, cap, br)
+    groups_per_j = -(-hist[:n_buckets] // group_q)
+    groups_per_bucket = nb_bucket * groups_per_j
+    group_base = torch.cumsum(groups_per_bucket, 0) - groups_per_bucket
+
+    sk_safe = torch.clamp(sk, 0, n_buckets - 1)
+    s_valid = sk < n_buckets
+    base_block = layout_starts[sk_safe].long() // br
+    s_count = torch.clamp(layout_counts[sk_safe].long(), max=cap)
+    s_nb = -(-s_count // br)
+    s_gpj = groups_per_j[sk_safe]
+    s_gbase = group_base[sk_safe]
+
+    j = torch.arange(max_blocks, device=dev)
+    ev_valid_s = s_valid[:, None] & (j[None, :] < s_nb[:, None])   # (E, maxB)
+    g = s_gbase[:, None] + j[None, :] * s_gpj[:, None] \
+        + (rank // group_q)[:, None]
+    slot = rank % group_q
+    g_drop = torch.where(ev_valid_s, g, g_total).reshape(-1)
+    blockno = base_block[:, None] + j[None, :]
+    cnt_ij = torch.clamp(s_count[:, None] - j[None, :] * br, 0, br)
+
+    grp_block = _scatter_drop(g_total, g_drop,
+                              blockno.reshape(-1).to(torch.int32), 0)
+    # (group, slot) flattened; dropped events keep an out-of-range index
+    gs = torch.where(g_drop < g_total,
+                     g_drop * group_q + slot.repeat_interleave(max_blocks),
+                     g_total * group_q)
+    n_slots = g_total * group_q
+    sq_b = sq.repeat_interleave(max_blocks).to(torch.int32)
+    grp_qidx = _scatter_drop(n_slots, gs, sq_b, 0).reshape(g_total, group_q)
+    grp_cnt = _scatter_drop(n_slots, gs, cnt_ij.reshape(-1).to(torch.int32),
+                            0).reshape(g_total, group_q)
+    grp_qvecs = queries_ext[grp_qidx.long()]
+
+    # event rows back in the ORIGINAL probe-event order: (E, maxB)
+    row_sorted = torch.where(ev_valid_s, g * group_q + slot[:, None], 0)
+    ev_row = torch.empty_like(row_sorted)
+    ev_row[order] = row_sorted
+    ev_valid = torch.empty_like(ev_valid_s)
+    ev_valid[order] = ev_valid_s
+    ev_block = torch.empty_like(blockno)
+    ev_block[order] = blockno
+    return (grp_block, grp_qvecs, grp_cnt, ev_row.to(torch.int32),
+            ev_block.to(torch.int32), ev_valid)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2: the CUDA kernels' wrappers and their plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+_PLAIN_CHUNK = 1024  # groups per step of the plain versions (bounds memory)
+
+
+def _group_blocks(data, grp_block, br: int) -> torch.Tensor:
+    """``(c, br, d_pad)`` f32 corpus blocks of a chunk of groups."""
+    return data.view(-1, br, data.shape[1])[grp_block.long()].to(torch.float32)
+
+
+def grouped_scores_plain(data, grp_qvecs, grp_block,
+                         block_rows: int | None = None) -> torch.Tensor:
+    """Plain K2: raw ``(g_total, G, block_rows)`` f32 score panels."""
+    br = _br(block_rows)
+    g_total, G, _ = grp_qvecs.shape
+    out = torch.empty((g_total, G, br), dtype=torch.float32,
+                      device=grp_qvecs.device)
+    for s in range(0, g_total, _PLAIN_CHUNK):
+        e = min(s + _PLAIN_CHUNK, g_total)
+        blocks = _group_blocks(data, grp_block[s:e], br)
+        out[s:e] = torch.matmul(grp_qvecs[s:e], blocks.transpose(1, 2))
+    return out
+
+
+def grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt, kk: int,
+                              block_rows: int | None = None, norms=None,
+                              scale_rows=None):
+    """Plain K1: ``(scores (g_total, G, kk) f32, lanes (g_total, G, kk)
+    i32)`` — the panel times ``scale_rows``, minus ``norms``, lanes
+    ``>= grp_cnt`` masked to -inf, then each row's top ``kk`` by a stable
+    descending sort (lowest lane first among ties).  Lanes under a -inf
+    score are unspecified."""
+    br = _br(block_rows)
+    kk = min(max(int(kk), 1), ROW_TOPK)
+    g_total, G, _ = grp_qvecs.shape
+    dev = grp_qvecs.device
+    scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
+    lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
+    lane = torch.arange(br, device=dev)
+    for s in range(0, g_total, _PLAIN_CHUNK):
+        e = min(s + _PLAIN_CHUNK, g_total)
+        blk = grp_block[s:e].long()
+        p = torch.matmul(grp_qvecs[s:e], _group_blocks(data, blk, br)
+                         .transpose(1, 2))                       # (c, G, br)
+        if scale_rows is not None:
+            p = p * scale_rows.view(-1, br)[blk][:, None, :]
+        if norms is not None:
+            p = p - norms.view(-1, br)[blk][:, None, :]
+        p = torch.where(lane < grp_cnt[s:e, :, None], p, -torch.inf)
+        v, i = torch.sort(p, dim=2, descending=True, stable=True)
+        scores[s:e] = v[..., :kk]
+        lanes[s:e] = i[..., :kk].to(torch.int32)
+    return scores, lanes
+
+
+def _check(name: str, t: torch.Tensor, dtypes, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_launch(data, grp_qvecs, grp_block, br: int, topk: bool):
+    """Validate the common operands of a CUDA launch; returns the
+    shape numbers the kernel takes."""
+    if data.device.type != "cuda":
+        raise ValueError(f"the grouped kernels run on CUDA tensors, got {data.device}")
+    dev = data.device
+    n_aligned, d_pad = data.shape
+    g_total, G, _ = grp_qvecs.shape
+    _check("data", data, tuple(_DTYPE_CODE), (n_aligned, d_pad), dev)
+    _check("grp_qvecs", grp_qvecs, (torch.float32,), (g_total, G, d_pad), dev)
+    _check("grp_block", grp_block, (torch.int32,), (g_total,), dev)
+    if not 1 <= G <= _MAX_G:
+        raise ValueError(f"group width {G} outside [1, {_MAX_G}]")
+    if br % _TILE or d_pad % _TILE or n_aligned % br or n_aligned == 0:
+        raise ValueError(
+            f"block_rows={br} and d_pad={d_pad} must be multiples of {_TILE}, "
+            f"and the layout's {n_aligned} rows a positive multiple of block_rows")
+    smem = 4 * (_MAX_G * d_pad + _TILE * (_TILE + 4) + (_MAX_G * br if topk else 0))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"d_pad={d_pad}, block_rows={br} need {smem} bytes of "
+                         f"shared memory, over the {_SMEM_LIMIT} a block may use")
+    return g_total, G, d_pad, n_aligned // br
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def grouped_scores_topk(data, grp_qvecs, grp_block, grp_cnt, kk: int,
+                        block_rows: int | None = None, norms=None,
+                        scale_rows=None):
+    """K1, the fused grouped score + per-row top-``kk`` (replaces
+    ``_grouped_scores_topk`` of the JAX package).  Returns ``(scores,
+    lanes)`` of shape ``(g_total, G, kk)``; see
+    :func:`grouped_scores_topk_plain` for the semantics.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if data.device.type == "cpu":
+        return grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt,
+                                         kk, block_rows, norms, scale_rows)
+    br = _br(block_rows)
+    kk = min(max(int(kk), 1), ROW_TOPK)
+    g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
+                                                br, topk=True)
+    dev = data.device
+    _check("grp_cnt", grp_cnt, (torch.int32,), (g_total, G), dev)
+    for name, t in (("norms", norms), ("scale_rows", scale_rows)):
+        if t is not None:
+            _check(name, t, (torch.float32,), (data.shape[0],), dev)
+    scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
+    lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    err = lib.nlsh_grouped_scores_topk(
+        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
+        _ptr(grp_cnt), _ptr(norms), _ptr(scale_rows), _ptr(scores),
+        _ptr(lanes), g_total, G, d_pad, br, n_blocks, kk,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "grouped_scores_topk")
+    KERNEL_LAUNCHES["grouped_scores_topk"] += 1
+    return scores, lanes
+
+
+def grouped_scores(data, grp_qvecs, grp_block,
+                   block_rows: int | None = None) -> torch.Tensor:
+    """K2, the raw ``(g_total, G, block_rows)`` grouped score panels
+    (replaces ``_grouped_scores_v3`` of the JAX package).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if data.device.type == "cpu":
+        return grouped_scores_plain(data, grp_qvecs, grp_block, block_rows)
+    br = _br(block_rows)
+    g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
+                                                br, topk=False)
+    out = torch.empty((g_total, G, br), dtype=torch.float32, device=data.device)
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    err = lib.nlsh_grouped_scores(
+        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
+        _ptr(out), g_total, G, d_pad, br, n_blocks,
+        ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream))
+    _raise_on(err, "grouped_scores")
+    KERNEL_LAUNCHES["grouped_scores"] += 1
+    return out
