@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving paths once on one GPU and check them.
 
     python3 chip_smoke.py          # from the repo root, on a CUDA machine
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
-power limit line), the kernel build, K1/K2 against their plain PyTorch
-versions on the card, the index build on the bench workload
-(1,183,514 x 100 from ``bench.glove100_workload`` with seed 0, the
-committed trained params), the serve of all 10,000 queries through
-``Indexer.query`` (recall@10 against the committed exact ground truth,
-QPS), and engine parity.  Then one ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
-code is non-zero and no result line is printed.  Needs no network and
-imports nothing of JAX.
+power limit line), the kernel build, K1-K4 against their plain PyTorch
+versions on the card, then two paths on the bench workload (1,183,514 x
+100 from ``bench.glove100_workload`` with seed 0, 10,000 queries,
+recall@10 against the committed exact ground truth):
+
+* the single table (the committed trained params, 16 flip probes, cap
+  512): index build, the serve through ``Indexer.query`` on the grouped
+  engine (K1 at k=10, K2 at k=20; QPS), kernel times, engine parity, and
+  the same serve on the windowed engine (K3 at k=10, K4 at k=20);
+* the L=8 ensemble (the committed 8-table params, 4 flip probes per
+  table): ``MultiTableIndexer`` build, ``calibrate`` and the serve on the
+  windowed engine (K3; recall, summed and exact candidates, QPS), K3/K4
+  times at the ensemble's group tables, and parity against the plain
+  scorer and the grouped and gather engines.
+
+Each path's launch counts are set to 0 just before it and read just
+after; every kernel must have launched on the path that runs it (K1, K2:
+the grouped serve; K3: the ensemble serve; K4: the windowed serve at
+k=20).  Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+"device": {...}}``.  Any failed check raises, so the exit code is
+non-zero and no result line is printed.  Needs no network and imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +43,8 @@ CACHE = os.path.join(ROOT, "benchmarks", "artifacts", "bench_cache")
 PARAMS = os.path.join(
     CACHE, "params_s0_n1183514_d100_q10000_k10_ts131072_v2_4da04f430c.msgpack")
 GT = os.path.join(CACHE, "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz")
+PARAMS_T8 = os.path.join(
+    CACHE, "cfgparams_mthr_glove100_b12_s600_b2048_t8_v2.msgpack")
 
 K = 10
 HASH_TIMES = 16
@@ -40,6 +55,20 @@ SCORE_TOL = 1e-5                     # kernel vs plain, unit-scale scores
 TIE_TOL = 1e-6                       # lanes compared only off such ties
 SLICE_ROWS, SLICE_QUERIES = 65_536, 512
 DEVICE = "cuda"
+# the L=8 ensemble at 4 flip probes per table; exact-f32 JAX on the CPU:
+# recall@10 0.99211, summed candidates 9539.69, exact query_size 8881.76
+MT_HASH_TIMES = 4
+MT_RECALL_RANGE = (0.9911, 0.9931)
+MT_N_CAND_RANGE = (9535.0, 9545.0)
+MT_QUERY_SIZE_RANGE = (8877.0, 8887.0)
+MT_GATHER_QUERIES = 1000
+SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
+REPLACES = {  # the TPU kernel each CUDA kernel replaces
+    "grouped_scores_topk": "nlsh_tpu/ops/pallas/query_kernel.py:879",
+    "grouped_scores": "nlsh_tpu/ops/pallas/query_kernel.py:766",
+    "windowed_scores_topk": "nlsh_tpu/ops/pallas/query_kernel.py:1372",
+    "windowed_scores": "nlsh_tpu/ops/pallas/query_kernel.py:1453",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -58,6 +87,24 @@ def id_agreement(a: np.ndarray, b: np.ndarray) -> float:
         len(set(ra[ra >= 0]) & set(rb[rb >= 0])) / max((ra >= 0).sum(), 1)
         for ra, rb in zip(a, b)
     ]))
+
+
+def reset_launches() -> None:
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    for name in qk.KERNEL_LAUNCHES:
+        qk.KERNEL_LAUNCHES[name] = 0
+
+
+def read_launches(*names: str) -> dict:
+    """The launch counts of ``names`` since :func:`reset_launches`;
+    fails unless each launched."""
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    got = {name: qk.KERNEL_LAUNCHES[name] for name in names}
+    check(all(v > 0 for v in got.values()),
+          f"every kernel of the path must launch: {got}")
+    return got
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -120,8 +167,8 @@ def _unit_rows(rng, shape) -> np.ndarray:
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def _compare_topk(scores, lanes, ref_panel, kk: int) -> float:
-    """Hold K1's ``(scores, lanes)`` to the masked plain panel: scores
+def _compare_topk(scores, lanes, ref_panel, kk: int, name: str = "K1") -> float:
+    """Hold K1's or K3's ``(scores, lanes)`` to the masked plain panel: scores
     within SCORE_TOL, -inf at the same places, lanes equal wherever the
     score is finite and not tied within TIE_TOL, and exact ties in the
     kernel's own output ordered lowest lane first.  Returns the max
@@ -132,25 +179,27 @@ def _compare_topk(scores, lanes, ref_panel, kk: int) -> float:
     ref_v, ref_i = ref_v[..., : kk + 1], ref_i[..., : kk + 1]
     fin = torch.isfinite(ref_v[..., :kk])
     check(bool((torch.isfinite(scores) == fin).all()),
-          "K1 -inf pattern differs from the plain version")
+          f"{name} -inf pattern differs from the plain version")
     err = float((scores - ref_v[..., :kk])[fin].abs().max()) if fin.any() else 0.0
-    check(err <= SCORE_TOL, f"K1 score error {err} > {SCORE_TOL}")
+    check(err <= SCORE_TOL, f"{name} score error {err} > {SCORE_TOL}")
     gap_prev = torch.full_like(ref_v[..., :kk], torch.inf)
     gap_prev[..., 1:] = ref_v[..., 1:kk] - ref_v[..., : kk - 1]
     gap_next = ref_v[..., :kk] - ref_v[..., 1: kk + 1]
     untied = fin & (gap_prev.abs() > TIE_TOL) & (gap_next.abs() > TIE_TOL)
     check(bool((lanes.long() == ref_i[..., :kk])[untied].all()),
-          "K1 lanes differ from the plain version off ties")
+          f"{name} lanes differ from the plain version off ties")
     same = (scores[..., 1:] == scores[..., :-1]) & torch.isfinite(scores[..., 1:])
     check(bool((lanes[..., 1:] > lanes[..., :-1])[same].all()),
-          "K1 broke an exact tie other than lowest lane first")
+          f"{name} broke an exact tie other than lowest lane first")
     return err
 
 
 def phase_kernels() -> dict:
-    """K1 and K2 vs their plain versions on synthetic groups: G=32,
-    br=512, d_pad=128, kk 10 and 16, f32 and bf16 corpora, with and
-    without norms and scale, empty groups, counts below kk, exact ties."""
+    """K1-K4 vs their plain versions on synthetic groups: G=32, br=512,
+    d_pad=128, kk 10 and 16, f32 and bf16 corpora, with and without norms
+    and scale, exact ties; for K1 empty groups and counts below kk, for
+    K3 empty slots (lo = hi = 0), ranges narrower than kk, ranges with
+    lo > 0 and a dead group."""
     import torch
 
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
@@ -205,9 +254,68 @@ def phase_kernels() -> dict:
                     worst["grouped_scores_topk"] = max(
                         worst["grouped_scores_topk"], err)
                     cases += 1
+    cases += _windowed_kernel_cases(rng, data, qvecs, t, worst)
     emit("kernels", cases=cases, max_abs_err=worst, score_tol=SCORE_TOL,
          tie_tol=TIE_TOL)
     return worst
+
+
+def _windowed_kernel_cases(rng, data, qvecs, t, worst) -> int:
+    """K3 and K4 on windowed groups over the same corpus and queries."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    dev = torch.device(DEVICE)
+    g_total, G = qvecs.shape[:2]
+    br = 512
+    n_windows = data.shape[0] // br
+    win = np.sort(rng.integers(0, n_windows, g_total)).astype(np.int32)
+    lo = rng.integers(0, br, (g_total, G)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(1, br, (g_total, G)), br).astype(np.int32)
+    lo[::3, ::2] = hi[::3, ::2] = 0                              # empty slots
+    hi[1::4, :6] = np.minimum(lo[1::4, :6] + rng.integers(1, 8, 6), br)  # < kk
+    lo[2::9] = 0                                   # ranges from the window start
+    lo[-1] = hi[-1] = 0                                          # a dead group
+    tw = {n: torch.from_numpy(v).to(dev) for n, v in (
+        ("win", win), ("lo", lo), ("hi", hi))}
+    lane = torch.arange(br, device=dev)
+    keep = (lane >= tw["lo"][:, :, None]) & (lane < tw["hi"][:, :, None])
+    wblk = tw["win"].long()
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dd = torch.from_numpy(data).to(dev).to(dtype)
+        raw = qk.windowed_scores(dd, t["qvecs"], tw["win"], block_rows=br)
+        ref_raw = qk.windowed_scores_plain(dd, t["qvecs"], tw["win"],
+                                           block_rows=br)
+        torch.cuda.synchronize()
+        err = float((raw - ref_raw).abs().max())
+        check(err <= SCORE_TOL, f"K4 {dtype} error {err} > {SCORE_TOL}")
+        worst["windowed_scores"] = max(worst.get("windowed_scores", 0.0), err)
+        for kk in (10, 16):
+            for use_norms in (False, True):
+                for use_scale in (False, True):
+                    nrm = t["norms"] if use_norms else None
+                    scl = t["scale"] if use_scale else None
+                    scores, lanes = qk.windowed_scores_topk(
+                        dd, t["qvecs"], tw["win"], tw["lo"], tw["hi"], kk,
+                        block_rows=br, norms=nrm, scale_rows=scl)
+                    torch.cuda.synchronize()
+                    ref = ref_raw.clone()
+                    if scl is not None:
+                        ref = ref * scl.view(-1, br)[wblk][:, None, :]
+                    if nrm is not None:
+                        ref = ref - nrm.view(-1, br)[wblk][:, None, :]
+                    ref = torch.where(keep, ref, -torch.inf)
+                    err = _compare_topk(scores, lanes, ref, kk, "K3")
+                    fin = torch.isfinite(scores)
+                    inside = ((lanes >= tw["lo"][..., None])
+                              & (lanes < tw["hi"][..., None]))
+                    check(bool(inside[fin].all()), "K3 lane outside [lo, hi)")
+                    worst["windowed_scores_topk"] = max(
+                        worst.get("windowed_scores_topk", 0.0), err)
+                    cases += 1
+    return cases
 
 
 def load_hashing():
@@ -238,28 +346,25 @@ def phase_index(corpus: np.ndarray):
 
 
 def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
-    """The main path's run: every query at k=10 (K1), then every query at
-    k=20 (above ROW_TOPK, so K2), through Indexer.query.  Returns the
-    k=10 ids and the launch counts of the run."""
+    """The single table's grouped run: every query at k=10 (K1), then
+    every query at k=20 (above ROW_TOPK, so K2), through Indexer.query.
+    Returns the k=10 ids and candidates, and the launch counts of the
+    run."""
     import torch
 
-    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     def serve(k):
         return idx.query(queries, k=k, hash_times=HASH_TIMES,
                          probe_mode="flip")
 
-    for name in qk.KERNEL_LAUNCHES:
-        qk.KERNEL_LAUNCHES[name] = 0
+    reset_launches()
     ids, n_cand = serve(K)
     ids20, _ = serve(2 * K)
-    launches = dict(qk.KERNEL_LAUNCHES)
+    launches = read_launches("grouped_scores_topk", "grouped_scores")
     check(ids.shape == (queries.shape[0], K) and ids20.shape[1] == 2 * K,
           "result shapes")
     check(bool(((ids >= -1) & (ids < idx.corpus.shape[0])).all()), "id range")
-    check(all(v > 0 for v in launches.values()),
-          f"every kernel of the path must launch: {launches}")
     recall = float(calculate_recall(gt[:, :K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
@@ -281,7 +386,7 @@ def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
          mean_n_candidates=mean_cand, k20_head_agreement=head20,
          launches=launches, pass_s=times, median_s=med,
          qps=queries.shape[0] / med)
-    return ids, launches
+    return ids, n_cand, launches
 
 
 def phase_kernel_times(idx, queries: np.ndarray) -> dict:
@@ -360,6 +465,222 @@ def phase_parity(corpus, queries, idx, ids_k1) -> dict:
     return out
 
 
+def phase_windowed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
+                   grouped_cand) -> dict:
+    """The single table on the windowed engine (dense layout, K3 at
+    k=10, K4 at k=20): recall, candidates query by query and ids against
+    the grouped engine's run.  Returns the launch counts of the run."""
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    idx.engine = "windowed"
+    layout = idx.layout  # the dense layout's build is not part of the run
+    reset_launches()
+    ids, n_cand = idx.query(queries, k=K, hash_times=HASH_TIMES,
+                            probe_mode="flip")
+    ids20, n_cand20 = idx.query(queries, k=2 * K, hash_times=HASH_TIMES,
+                                probe_mode="flip")
+    launches = read_launches("windowed_scores_topk", "windowed_scores")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
+          f"windowed recall@10 {recall} outside {RECALL_RANGE}")
+    check(bool((n_cand == grouped_cand).all() and (n_cand20 == n_cand).all()),
+          "windowed n_candidates differ from the grouped engine's")
+    agree = id_agreement(grouped_ids, ids)
+    check(agree >= 0.999, f"windowed vs grouped agreement {agree} < 0.999")
+    head20 = id_agreement(ids, ids20[:, :K])
+    check(head20 >= 0.999, f"windowed k=20 head vs k=10 {head20} < 0.999")
+    emit("windowed", n_queries=int(queries.shape[0]), k=[K, 2 * K],
+         hash_times=HASH_TIMES, recall_at_10=recall,
+         mean_n_candidates=float(n_cand.mean()),
+         windowed_vs_grouped=agree, k20_head_agreement=head20,
+         layout_rows=layout.n_rows, align=layout.align, launches=launches)
+    idx.engine = "grouped"
+    return launches
+
+
+def load_ensemble():
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+    from nlsh_tpu_torch.utils.checkpoint import read_msgpack, stacked_params_from_jax
+
+    def make():
+        return get_hashing("MultivariateBernoulli",
+                           get_encoder("siren", 100, [256, 256]), 12)
+
+    return stacked_params_from_jax(make, read_msgpack(PARAMS_T8)["hashing"])
+
+
+def phase_ensemble_index(corpus: np.ndarray):
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+
+    hashings = load_ensemble()
+    t0 = time.perf_counter()
+    midx = MultiTableIndexer(hashings, corpus, metric="cosine", device=DEVICE)
+    layout = midx._serving_layout()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = midx.counts.cpu().numpy()
+    gib = (layout.data.numel() * layout.data.element_size()) / 2 ** 30
+    check(midx.engine == "windowed", f"auto engine is {midx.engine}")
+    emit("ensemble_index", build_s=build_s, n_tables=midx.n_tables,
+         n_rows=int(corpus.shape[0]),
+         max_bucket=[int(c.max()) for c in counts],
+         buckets_used=[int((c > 0).sum()) for c in counts],
+         probe_budget=midx.probe_budget, cap=layout.cap, align=layout.align,
+         block_rows=layout.br, layout_rows=layout.n_rows, layout_gib=gib,
+         engine=midx.engine)
+    return midx
+
+
+def _flat_probes(midx, queries: np.ndarray):
+    import torch
+
+    q = torch.as_tensor(queries, device=midx.device)
+    with torch.no_grad():
+        return midx._flat_probes(*midx._probes(q, MT_HASH_TIMES,
+                                               probe_mode="flip"))
+
+
+def phase_ensemble_serve(midx, queries: np.ndarray, gt: np.ndarray):
+    """The ensemble's run: ``calibrate`` on the queries, then all 10,000
+    through ``MultiTableIndexer.query`` on the windowed engine (K3).
+    Returns the ids, summed candidates and the launch counts."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    g_cal = midx.calibrate(queries, **kw)
+    layout = midx._serving_layout()
+    gp, gv = _flat_probes(midx, queries)
+    override, needed = midx.windowed_group_bound(layout, gp, gv)
+    static = qk.windowed_static_bound(gp.numel(), layout.cap // layout.br + 1,
+                                      layout.n_rows // layout.br, qk.GROUP_W)
+    check(override == g_cal, f"the batch ({needed} groups) does not fit its "
+          f"own calibration ({g_cal})")
+
+    reset_launches()
+    ids, n_cand = midx.query(queries, k=K, **kw)
+    launches = read_launches("windowed_scores_topk")
+    check(ids.shape == (queries.shape[0], K), "ensemble result shape")
+    check(bool(((ids >= -1) & (ids < midx.corpus.shape[0])).all()),
+          "ensemble id range")
+    for row in ids[:200]:
+        real = row[row >= 0]
+        check(len(set(real)) == len(real), "duplicate ids after the dedupe")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    size = float(midx.exact_query_size(queries, **kw).mean())
+    check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
+          f"ensemble recall@10 {recall} outside {MT_RECALL_RANGE}")
+    check(MT_N_CAND_RANGE[0] <= mean_cand <= MT_N_CAND_RANGE[1],
+          f"ensemble mean n_candidates {mean_cand} outside {MT_N_CAND_RANGE}")
+    check(MT_QUERY_SIZE_RANGE[0] <= size <= MT_QUERY_SIZE_RANGE[1],
+          f"ensemble exact query_size {size} outside {MT_QUERY_SIZE_RANGE}")
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        midx.query(queries, k=K, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    emit("ensemble_serve", n_queries=int(queries.shape[0]), k=K,
+         hash_times=MT_HASH_TIMES, probe_mode="flip", engine=midx.engine,
+         recall_at_10=recall, mean_n_candidates=mean_cand,
+         mean_exact_query_size=size, groups_calibrated=g_cal,
+         groups_static=static, groups_live=needed, launches=launches,
+         pass_s=times, median_s=med, qps=queries.shape[0] / med)
+    return ids, n_cand, launches
+
+
+def phase_ensemble_kernel_times(midx, queries: np.ndarray) -> dict:
+    """K3 and K4 and their plain versions at the ensemble's own group
+    table (the calibrated one the serve used): CUDA-event times and max
+    score error."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    lay = midx._serving_layout()
+    gp, gv = _flat_probes(midx, queries)
+    g_total = midx._g_cal
+    q = torch.as_tensor(queries, device=midx.device)
+    grp_window, grp_qvecs, grp_lo, grp_hi, *_ = qk._windowed_prep(
+        lay.starts, lay.counts, gp, gv, qk.extend_queries(lay, q), lay.cap,
+        g_total=g_total, max_sub=lay.cap // lay.br + 1, group_q=qk.GROUP_W,
+        block_rows=lay.br)
+    args = (lay.data, grp_qvecs, grp_window)
+    topk = (grp_lo, grp_hi, K)
+    out = {}
+    k3 = qk.windowed_scores_topk(*args, *topk, block_rows=lay.br)
+    p3 = qk.windowed_scores_topk_plain(*args, *topk, block_rows=lay.br)
+    fin = torch.isfinite(p3[0])
+    check(bool((torch.isfinite(k3[0]) == fin).all()), "K3 -inf pattern")
+    check(bool((k3[1] == p3[1])[fin].float().mean() >= 0.999),
+          "K3 lanes vs plain at the ensemble's shapes")
+    out["windowed_scores_topk"] = {
+        "max_abs_err": float((k3[0] - p3[0])[fin].abs().max()),
+        "ms": cuda_ms(lambda: qk.windowed_scores_topk(
+            *args, *topk, block_rows=lay.br), 20),
+        "plain_ms": cuda_ms(lambda: qk.windowed_scores_topk_plain(
+            *args, *topk, block_rows=lay.br), 3),
+    }
+    del k3, p3
+    k4 = qk.windowed_scores(*args, block_rows=lay.br)
+    p4 = qk.windowed_scores_plain(*args, block_rows=lay.br)
+    out["windowed_scores"] = {
+        "max_abs_err": float((k4 - p4).abs().max()),
+        "ms": cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br), 5),
+        "plain_ms": cuda_ms(lambda: qk.windowed_scores_plain(
+            *args, block_rows=lay.br), 3),
+    }
+    del k4, p4
+    for name, v in out.items():
+        check(v["max_abs_err"] <= SCORE_TOL,
+              f"{name} error {v['max_abs_err']} at the ensemble's shapes")
+    live = grp_hi > grp_lo
+    emit("ensemble_kernel_times", g_total=g_total, group_q=qk.GROUP_W,
+         block_rows=lay.br, d_pad=lay.d_pad,
+         live_groups=int(live.any(dim=1).sum()),
+         live_slots=int(live.sum()), **out)
+    return out
+
+
+def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
+    """Windowed with K3 vs its plain scorer (all queries, >= 0.999), vs
+    the grouped engine (all queries, >= 0.999, equal candidates), and vs
+    the gather engine (the first 1,000 queries, the bench's 0.98 gate)."""
+    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    out = {}
+    p_ids, p_cand = midx.query(queries, plain=True, **kw)
+    check(bool((p_cand == n_cand).all()), "K3 vs plain: n_candidates differ")
+    out["windowed:k3:plain"] = id_agreement(p_ids, ids)
+    check(out["windowed:k3:plain"] >= 0.999,
+          f"ensemble K3 vs plain {out['windowed:k3:plain']} < 0.999")
+    midx.engine = "grouped"
+    g_ids, g_cand = midx.query(queries, **kw)
+    check(bool((g_cand == n_cand).all()),
+          "ensemble grouped vs windowed: n_candidates differ")
+    out["windowed:grouped"] = id_agreement(g_ids, ids)
+    check(out["windowed:grouped"] >= 0.999,
+          f"ensemble windowed vs grouped {out['windowed:grouped']} < 0.999")
+    midx.engine = "gather"
+    head = queries[:MT_GATHER_QUERIES]
+    x_ids, x_cand = midx.query(head, **kw)
+    out["windowed:gather"] = id_agreement(x_ids, ids[:MT_GATHER_QUERIES])
+    check(out["windowed:gather"] >= 0.98,
+          f"ensemble windowed vs gather {out['windowed:gather']} < 0.98")
+    check(bool((x_cand <= n_cand[:MT_GATHER_QUERIES]).all()),
+          "distinct candidates above the summed occupancy")
+    emit("ensemble_parity", gather_queries=MT_GATHER_QUERIES,
+         gather_mean_distinct=float(x_cand.mean()), **out)
+    midx.engine = "windowed"
+    return out
+
+
 def main() -> int:
     import bench  # fails, before any output, outside a checkout of the repo
     import nlsh_tpu_torch  # noqa: F401
@@ -372,18 +693,23 @@ def main() -> int:
     with np.load(GT) as z:
         gt = z["gt"]
     idx = phase_index(corpus)
-    ids, launches = phase_serve(idx, queries, gt)
+    ids, n_cand, launches = phase_serve(idx, queries, gt)
     times = phase_kernel_times(idx, queries)
     phase_parity(corpus, queries, idx, ids)
+    launches.update(phase_windowed(idx, queries, gt, ids, n_cand))
+    del idx
 
-    replaces = {"grouped_scores_topk": "nlsh_tpu/ops/pallas/query_kernel.py:879",
-                "grouped_scores": "nlsh_tpu/ops/pallas/query_kernel.py:766"}
+    midx = phase_ensemble_index(corpus)
+    mt_ids, mt_cand, mt_launches = phase_ensemble_serve(midx, queries, gt)
+    launches.update(mt_launches)
+    times.update(phase_ensemble_kernel_times(midx, queries))
+    phase_ensemble_parity(midx, queries, mt_ids, mt_cand)
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "nlsh_tpu_torch/csrc/grouped_scores.cu",
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SRC,
+         "replaces": REPLACES[name], "launches": launches[name],
          **times[name]}
-        for name in replaces
+        for name in REPLACES
     ]}), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Grouped bucket-block scoring of the serving path: kernels K1 and K2.
+// Grouped bucket-block scoring of the serving path: kernels K1-K4.
 //
 // Replaces the Pallas kernels of nlsh_tpu/ops/pallas/query_kernel.py:
 //   K1  _grouped_scores_topk (kernel body _make_grouped_topk_kernel):
@@ -7,15 +7,27 @@
 //       to -inf, then the top kk of each row, lowest lane first on ties.
 //   K2  _grouped_scores_v3 (kernel body _make_grouped_kernel_v3): the same
 //       product as a raw (G, br) panel: no scale, norms, mask or top-k.
+//   K3  _windowed_scores_topk (kernel body _make_windowed_topk_kernel):
+//       K1 over br-row WINDOWS of a dense (8-row-aligned) layout; query
+//       slot s keeps the lanes in [grp_lo[g, s], grp_hi[g, s]), its
+//       bucket's extent inside the window.  K1's mask lane < cnt is the
+//       case lo = 0, hi = cnt, so K3 is K1's body with a lower bound
+//       (template flag kWindowed; K1 compiles exactly as before).
+//   K4  _windowed_scores (kernel body _make_windowed_kernel): raw windowed
+//       panels.  A window is br rows and the layout's row count is a
+//       multiple of br, so a window index IS a block index and K4 is K2's
+//       kernel launched on the window table (entry nlsh_grouped_scores;
+//       the Python wrapper windowed_scores keeps its own count).
 //
 // What bounds it: a group multiplies its G <= 32 f32 query rows by one
 // br-row corpus block, 2 * G = 64 flop per corpus element, i.e. about 16
 // flop per streamed f32 byte at the bench shape (G = 32, br = 512,
 // d_pad = 128).  That is far below the H100's f32 ridge point, so the
-// kernel is bound by memory and L2 traffic, not by arithmetic.  The prep
-// sorts groups by block, so the groups that share a hot block run in
-// neighbouring thread blocks and re-read it from the 50 MB L2 rather
-// than from HBM.
+// kernel is bound by memory and L2 traffic, not by arithmetic: one
+// 256 KB f32 window or block (512 x 128 x 4 B) streamed per live group.
+// The prep sorts groups by block (window), so the groups that share a
+// hot block run in neighbouring thread blocks and re-read it from the
+// 50 MB L2 rather than from HBM.
 //
 // Design (a simple kernel that is right; wgmma, TMA and persistent blocks
 // are later work): one thread block of 512 threads per group.  The
@@ -24,11 +36,14 @@
 // and widened to f32.  Each thread accumulates 4 query rows x 2 corpus
 // rows with f32 FMAs on the CUDA cores: no tensor cores, hence no TF32,
 // so scores stay exact f32 like the reference's HIGHEST-precision dots.
-// K1 keeps the (G, br) panel in dynamic shared memory (64 KB at br = 512)
-// and selects each row's top kk with one warp per row: kk rounds of a
-// warp argmax in which the lowest lane wins ties, the reference rule.
-// Row tiles past the group's largest count are masked anyway and are
-// skipped, which also skips whole empty groups.
+// A lane's dot runs the same FMA sequence wherever the row sits in its
+// block, so one corpus row scores bit-identically in every table of an
+// ensemble.  K1/K3 keep the (G, br) panel in dynamic shared memory
+// (64 KB at br = 512) and select each row's top kk with one warp per row:
+// kk rounds of a warp argmax in which the lowest lane wins ties, the
+// reference rule.  Row tiles outside [min lo, max hi) over the group's
+// live slots are masked anyway and are skipped, which also skips empty
+// slots (lo = hi = 0) and whole dead groups.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,14 +114,15 @@ __device__ void stage_corpus_tile(const T* __restrict__ tile, int d_pad,
   }
 }
 
-// One thread block per group.  kTopK selects K1 (masked per-row top-kk)
-// or K2 (raw panel).
-template <typename T, bool kTopK>
+// One thread block per group.  kTopK selects K1/K3 (masked per-row
+// top-kk) or K2/K4 (raw panel); kWindowed adds K3's lower lane bound.
+template <typename T, bool kTopK, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
 grouped_kernel(const float* __restrict__ qvecs,    // (g_total, G, d_pad)
                const T* __restrict__ data,         // (n_blocks * br, d_pad)
-               const int* __restrict__ grp_block,  // (g_total,)
-               const int* __restrict__ grp_cnt,    // (g_total, G); K1 only
+               const int* __restrict__ grp_block,  // (g_total,) block/window
+               const int* __restrict__ grp_cnt,    // (g_total, G) K1 cnt, K3 hi
+               const int* __restrict__ grp_lo,     // (g_total, G); K3 only
                const float* __restrict__ norms,    // (n_blocks * br,) or null
                const float* __restrict__ scale,    // (n_blocks * br,) or null
                float* __restrict__ out_scores,     // K1 (g, G, kk); K2 (g, G, br)
@@ -116,33 +132,48 @@ grouped_kernel(const float* __restrict__ qvecs,    // (g_total, G, d_pad)
   float* qs = reinterpret_cast<float*>(smem4);  // kMaxG x d_pad
   float* bs = qs + kMaxG * d_pad;               // kTileRows x kBStride
   float* panel = bs + kTileRows * kBStride;     // kMaxG x br (K1)
+  __shared__ int lo_s[kMaxG];   // a slot keeps lanes [lo_s, cnt_s)
   __shared__ int cnt_s[kMaxG];
-  __shared__ int max_cnt_s;
+  __shared__ int tile_lo_s, tile_hi_s;
 
   const int g = blockIdx.x;
   const int tid = threadIdx.x;
   const int blk = min(max(grp_block[g], 0), n_blocks - 1);
   const size_t row0 = static_cast<size_t>(blk) * br;
 
-  int n_lanes = br;  // lanes worth scoring
+  int t0 = 0;                                // row tiles worth scoring:
+  int t1 = (br + kTileRows - 1) / kTileRows; // [t0, t1)
   if (kTopK) {
     if (tid < kMaxG) {
-      cnt_s[tid] = tid < G ? min(max(grp_cnt[g * G + tid], 0), br) : 0;
+      int lo = 0, hi = 0;
+      if (tid < G) {
+        hi = min(max(grp_cnt[g * G + tid], 0), br);
+        if (kWindowed) lo = min(max(grp_lo[g * G + tid], 0), br);
+      }
+      if (hi <= lo) lo = hi = 0;  // an empty slot
+      lo_s[tid] = lo;
+      cnt_s[tid] = hi;
     }
     __syncthreads();
     if (tid == 0) {
-      int m = 0;
-      for (int q = 0; q < kMaxG; ++q) m = max(m, cnt_s[q]);
-      max_cnt_s = m;
+      int lo = br, hi = 0;
+      for (int q = 0; q < kMaxG; ++q) {
+        if (cnt_s[q] > lo_s[q]) {
+          lo = min(lo, lo_s[q]);
+          hi = max(hi, cnt_s[q]);
+        }
+      }
+      tile_lo_s = hi > lo ? lo / kTileRows : 0;
+      tile_hi_s = hi > lo ? (hi + kTileRows - 1) / kTileRows : 0;
     }
     __syncthreads();
-    n_lanes = max_cnt_s;
+    t0 = tile_lo_s;
+    t1 = tile_hi_s;
   }
-  const int n_tiles = (n_lanes + kTileRows - 1) / kTileRows;
 
   // the group's query rows; rows past G are zero
   const float* qg = qvecs + static_cast<size_t>(g) * G * d_pad;
-  for (int i = tid * 4; i < kMaxG * d_pad && n_tiles > 0; i += kThreads * 4) {
+  for (int i = tid * 4; i < kMaxG * d_pad && t1 > t0; i += kThreads * 4) {
     const float4 v = i / d_pad < G
                          ? __ldg(reinterpret_cast<const float4*>(qg + i))
                          : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -151,7 +182,7 @@ grouped_kernel(const float* __restrict__ qvecs,    // (g_total, G, d_pad)
 
   const int r_lo = tid % kRowHalf;
   const int q_lo = (tid / kRowHalf) * kQPerThread;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < t1; ++t) {
     float acc[kQPerThread][2];
 #pragma unroll
     for (int i = 0; i < kQPerThread; ++i) acc[i][0] = acc[i][1] = 0.f;
@@ -193,7 +224,9 @@ grouped_kernel(const float* __restrict__ qvecs,    // (g_total, G, d_pad)
           // contraction) as the reference does them
           if (scale != nullptr) s = __fmul_rn(s, scale[row0 + lane]);
           if (norms != nullptr) s = __fsub_rn(s, norms[row0 + lane]);
-          panel[q * br + lane] = lane < cnt_s[q] ? s : -CUDART_INF_F;
+          const bool keep =
+              (!kWindowed || lane >= lo_s[q]) && lane < cnt_s[q];
+          panel[q * br + lane] = keep ? s : -CUDART_INF_F;
         } else if (q < G) {
           out_scores[(static_cast<size_t>(g) * G + q) * br + lane] = s;
         }
@@ -203,9 +236,11 @@ grouped_kernel(const float* __restrict__ qvecs,    // (g_total, G, d_pad)
   if (!kTopK) return;
 
   // lanes of skipped tiles are masked
-  const int scored = n_tiles * kTileRows;
   for (int i = tid; i < kMaxG * br; i += kThreads) {
-    if (i % br >= scored) panel[i] = -CUDART_INF_F;
+    const int lane = i % br;
+    if (lane < t0 * kTileRows || lane >= t1 * kTileRows) {
+      panel[i] = -CUDART_INF_F;
+    }
   }
   __syncthreads();
 
@@ -251,13 +286,13 @@ size_t smem_bytes(int d_pad, int br, bool topk) {
                           (topk ? static_cast<size_t>(kMaxG) * br : 0));
 }
 
-template <typename T, bool kTopK>
+template <typename T, bool kTopK, bool kWindowed>
 int launch(const void* qvecs, const void* data, const void* grp_block,
-           const void* grp_cnt, const void* norms, const void* scale,
-           void* out_scores, void* out_lanes, int g_total, int G, int d_pad,
-           int br, int n_blocks, int kk, void* stream) {
+           const void* grp_cnt, const void* grp_lo, const void* norms,
+           const void* scale, void* out_scores, void* out_lanes, int g_total,
+           int G, int d_pad, int br, int n_blocks, int kk, void* stream) {
   const size_t smem = smem_bytes(d_pad, br, kTopK);
-  auto kernel = grouped_kernel<T, kTopK>;
+  auto kernel = grouped_kernel<T, kTopK, kWindowed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -266,11 +301,31 @@ int launch(const void* qvecs, const void* data, const void* grp_block,
     kernel<<<g_total, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(qvecs), static_cast<const T*>(data),
         static_cast<const int*>(grp_block), static_cast<const int*>(grp_cnt),
-        static_cast<const float*>(norms), static_cast<const float*>(scale),
-        static_cast<float*>(out_scores), static_cast<int*>(out_lanes), G,
-        d_pad, br, n_blocks, kk);
+        static_cast<const int*>(grp_lo), static_cast<const float*>(norms),
+        static_cast<const float*>(scale), static_cast<float*>(out_scores),
+        static_cast<int*>(out_lanes), G, d_pad, br, n_blocks, kk);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 (grp_lo null) or K3 (grp_lo given), by corpus dtype
+template <bool kWindowed>
+int launch_topk(int dtype, const void* qvecs, const void* data,
+                const void* grp_block, const void* grp_hi, const void* grp_lo,
+                const void* norms, const void* scale, void* out_scores,
+                void* out_lanes, int g_total, int G, int d_pad, int br,
+                int n_blocks, int kk, void* stream) {
+  if (dtype == 0) {
+    return launch<float, true, kWindowed>(
+        qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
+        out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, true, kWindowed>(
+        qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
+        out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -281,33 +336,37 @@ extern "C" int nlsh_grouped_scores_topk(
     const void* grp_cnt, const void* norms, const void* scale,
     void* out_scores, void* out_lanes, int g_total, int G, int d_pad, int br,
     int n_blocks, int kk, void* stream) {
-  if (dtype == 0) {
-    return launch<float, true>(qvecs, data, grp_block, grp_cnt, norms, scale,
-                               out_scores, out_lanes, g_total, G, d_pad, br,
-                               n_blocks, kk, stream);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16, true>(qvecs, data, grp_block, grp_cnt, norms,
-                                       scale, out_scores, out_lanes, g_total,
-                                       G, d_pad, br, n_blocks, kk, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_topk<false>(dtype, qvecs, data, grp_block, grp_cnt, nullptr,
+                            norms, scale, out_scores, out_lanes, g_total, G,
+                            d_pad, br, n_blocks, kk, stream);
 }
 
+// K3: grp_window (g,) window ids, grp_lo / grp_hi (g, G) lane bounds.
+extern "C" int nlsh_windowed_scores_topk(
+    int dtype, const void* qvecs, const void* data, const void* grp_window,
+    const void* grp_lo, const void* grp_hi, const void* norms,
+    const void* scale, void* out_scores, void* out_lanes, int g_total, int G,
+    int d_pad, int br, int n_windows, int kk, void* stream) {
+  return launch_topk<true>(dtype, qvecs, data, grp_window, grp_hi, grp_lo,
+                           norms, scale, out_scores, out_lanes, g_total, G,
+                           d_pad, br, n_windows, kk, stream);
+}
+
+// K2, and K4 on a window table.
 extern "C" int nlsh_grouped_scores(int dtype, const void* qvecs,
                                    const void* data, const void* grp_block,
                                    void* out, int g_total, int G, int d_pad,
                                    int br, int n_blocks, void* stream) {
   if (dtype == 0) {
-    return launch<float, false>(qvecs, data, grp_block, nullptr, nullptr,
-                                nullptr, out, nullptr, g_total, G, d_pad, br,
-                                n_blocks, 0, stream);
+    return launch<float, false, false>(qvecs, data, grp_block, nullptr,
+                                       nullptr, nullptr, nullptr, out,
+                                       nullptr, g_total, G, d_pad, br,
+                                       n_blocks, 0, stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16, false>(qvecs, data, grp_block, nullptr,
-                                        nullptr, nullptr, out, nullptr,
-                                        g_total, G, d_pad, br, n_blocks, 0,
-                                        stream);
+    return launch<__nv_bfloat16, false, false>(
+        qvecs, data, grp_block, nullptr, nullptr, nullptr, nullptr, out,
+        nullptr, g_total, G, d_pad, br, n_blocks, 0, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

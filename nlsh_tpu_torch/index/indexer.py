@@ -2,10 +2,11 @@
 
 Port of :mod:`nlsh_tpu.index.indexer` (constructor, lazy serving layout,
 ``query``/``query_async``/``fetch``).  Engines: ``"grouped"`` (the
-grouped CUDA kernels; ``"auto"`` picks it on every device) and
-``"gather"`` (gather + exact rerank, the JAX package's ``"xla"``).
-``add``/``remove``/``compact``, ``save``/``load`` and the fixed-cap and
-windowed engines are still to be ported (ROADMAP.md Queue 1, item 5).
+grouped CUDA kernels K1/K2; ``"auto"`` picks it on every device),
+``"windowed"`` (the dense-window kernels K3/K4, on an 8-row-aligned
+layout) and ``"gather"`` (gather + exact rerank, the JAX package's
+``"xla"``).  ``add``/``remove``/``compact``, ``save``/``load`` and the
+fixed-cap engine are still to be ported (ROADMAP.md Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from torch import nn
 
 from nlsh_tpu_torch.index.bucket_table import build_bucket_table
 from nlsh_tpu_torch.index.query import default_query_chunk, query_bucket_table
-from nlsh_tpu_torch.index.serving import serving_query_grouped
+from nlsh_tpu_torch.index.serving import (
+    serving_query_grouped,
+    serving_query_windowed,
+)
 from nlsh_tpu_torch.ops.cuda.query_kernel import serving_layout
 
 
@@ -44,12 +48,13 @@ class Indexer:
       metric: rerank metric in the original space.
       probe_budget: max rows served per probed bucket (the grouped
         engine's cap); ``None`` uses the largest bucket (exact).
-      engine: ``"auto"`` (= ``"grouped"``), ``"grouped"`` or ``"gather"``.
+      engine: ``"auto"`` (= ``"grouped"``), ``"grouped"``, ``"windowed"``
+        or ``"gather"``.
       serving_dtype: ``torch.float32`` or ``torch.bfloat16`` layout rows.
       block_rows: rows per grouped-engine block (default 512).
     """
 
-    ENGINES = ("auto", "grouped", "gather")
+    ENGINES = ("auto", "grouped", "windowed", "gather")
 
     def __init__(self, hashing: nn.Module, corpus, *, device,
                  metric: str = "cosine", probe_budget: int | None = None,
@@ -84,13 +89,16 @@ class Indexer:
     @property
     def layout(self):
         """Lazily built serving layout, rebuilt when a knob it depends on
-        (dtype, probe budget, block rows) changed since the last build."""
-        sig = (self.serving_dtype, int(self.probe_budget), self.block_rows)
+        (bucket alignment — 8 rows for the windowed engine, else the cap —
+        dtype, probe budget, block rows) changed since the last build."""
+        align = 8 if self.engine == "windowed" else None
+        sig = (align, self.serving_dtype, int(self.probe_budget),
+               self.block_rows)
         if self._layout is None or self._layout_sig != sig:
             self._layout = serving_layout(
                 self.table, self.corpus, metric=self.metric,
                 cap=self.probe_budget, dtype=self.serving_dtype,
-                block_rows=self.block_rows)
+                align=align, block_rows=self.block_rows)
             self._layout_sig = sig
         return self._layout
 
@@ -109,8 +117,9 @@ class Indexer:
         returns ``(topk_ids, n_candidates)`` device tensors for
         :meth:`fetch`.  Sampled probes draw from ``generator`` (default:
         a fresh one seeded 0 on the index's device).  ``plain=True``
-        serves the grouped engine with the kernels' plain PyTorch
-        versions (the reference the kernels are checked against)."""
+        serves the grouped or windowed engine with the kernels' plain
+        PyTorch versions (the reference the kernels are checked
+        against)."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         if generator is None and probe_mode == "sample" and hash_times > 1:
@@ -119,9 +128,11 @@ class Indexer:
             queries, n_probes=hash_times, generator=generator,
             probe_mode=probe_mode)
         if self.engine != "gather":
-            ids, _, n_cand = serving_query_grouped(
-                self.layout, queries, probe_ids, probe_valid,
-                self.table.counts, k=k, plain=plain)
+            serve = (serving_query_windowed if self.engine == "windowed"
+                     else serving_query_grouped)
+            ids, _, n_cand = serve(self.layout, queries, probe_ids,
+                                   probe_valid, self.table.counts, k=k,
+                                   plain=plain)
             return ids, n_cand
         if query_chunk is None:
             query_chunk = default_query_chunk(hash_times, self.probe_budget,

@@ -1,13 +1,21 @@
-"""Grouped serving path: prep -> grouped scoring kernel -> top-k merge.
+"""Grouped and windowed serving paths: prep -> scoring kernel -> top-k merge.
 
-Port of the grouped half of :mod:`nlsh_tpu.index.serving`.  The (query,
-probe) events are sorted by bucket block, every block is scored against
-the up to G queries that probe it (kernel K1, or K2 when the per-block k
-is above ``ROW_TOPK``), and each query's per-block winners merge into
-its top-k corpus ids.  Score order is the exact distance order (the
-layout's metric extension makes score monotone in distance), so results
-match the gather engine whenever ``layout.cap`` covers the probed
-buckets.
+Port of the grouped and windowed halves of :mod:`nlsh_tpu.index.serving`.
+
+* Grouped: the (query, probe) events are sorted by bucket block, every
+  block is scored against the up to G queries that probe it (kernel K1,
+  or K2 when the per-block k is above ``ROW_TOPK``).
+* Windowed: the events are cut into sub-events of fixed ``block_rows``
+  windows of a dense layout, every window is scored against the up to G
+  sub-events that land in it, each slot masked to its bucket's
+  ``[lo, hi)`` lanes (kernel K3, or K4 when the per-row k is above
+  ``ROW_TOPK``).  The low-occupancy engine: ensembles, whose buckets are
+  far smaller than a block.
+
+Each query's per-block (per-window) winners then merge into its top-k
+corpus ids.  Score order is the exact distance order (the layout's
+metric extension makes score monotone in distance), so results match the
+gather engine whenever ``layout.cap`` covers the probed buckets.
 
 K1 returns scores and int32 lanes as two arrays, so the JAX package's
 ``PACK_W`` panel packing (a TPU gather workaround) has no counterpart.
@@ -55,6 +63,56 @@ def _chunked_serve(queries, probe_ids, probe_valid, query_chunk: int,
     return torch.cat(out_ids), torch.cat(out_scores), torch.cat(out_cand)
 
 
+def _panel_topk(layout: qk.ServingLayout, scores, grp_block, grp_lo, grp_hi,
+                k: int):
+    """The wide-k branch after K2/K4: per-row scale, then norms, then the
+    lane mask (``[grp_lo, grp_hi)``, or ``< grp_hi`` with ``grp_lo``
+    None), then each row's top ``min(k, br)``."""
+    br = layout.br
+    blk = grp_block.long()
+    if layout.scale is not None and layout.scale.ndim == 1:
+        scores = scores * layout.scale.view(-1, br)[blk][:, None, :]
+    if layout.norms is not None:  # euclidean: 2q.c - ||c||^2
+        scores = scores - layout.norms.view(-1, br)[blk][:, None, :]
+    lane = torch.arange(br, device=scores.device)
+    keep = lane < grp_hi[:, :, None]
+    if grp_lo is not None:
+        keep &= lane >= grp_lo[:, :, None]
+    scores = torch.where(keep, scores, -torch.inf)
+    return _largest_k(scores.reshape(-1, br), min(k, br))
+
+
+def _merge(layout: qk.ServingLayout, probe_ids, probe_valid, full_counts,
+           k: int, row_top, row_lane, ev_row, ev_block, ev_valid):
+    """Each query's top ``k`` over its events' per-row winners
+    (``row_top``/``row_lane``, ``(g_total * G, kk)``), mapped back to
+    corpus ids through the event's block (window) and lane, and its
+    summed probed occupancy."""
+    br = layout.br
+    nq = probe_ids.shape[0]
+    n_rows_tab, kk = row_top.shape
+    safe_rows = torch.clamp(ev_row.reshape(nq, -1).long(), 0, n_rows_tab - 1)
+    ev_top = torch.where(ev_valid.reshape(nq, -1)[:, :, None],
+                         row_top[safe_rows], -torch.inf)      # (nq, n_ev, kk)
+    ev_lane = row_lane[safe_rows].reshape(nq, -1)
+    flat_top = ev_top.reshape(nq, -1)
+    k_eff = min(k, flat_top.shape[1])  # row_k < k shrinks the pool
+    top_scores, arg = _largest_k(flat_top, k_eff)
+    lane_sel = torch.gather(ev_lane, 1, arg).long()
+    block_sel = torch.gather(ev_block.reshape(nq, -1), 1, arg // kk).long()
+    pos = torch.clamp(block_sel * br + lane_sel, 0, layout.n_rows - 1)
+    ids = torch.where(torch.isfinite(top_scores), layout.row_map[pos], -1)
+    ids = ids.to(torch.int32)
+    if k_eff < k:
+        ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
+        top_scores = torch.nn.functional.pad(top_scores, (0, k - k_eff),
+                                             value=-torch.inf)
+    safe = torch.clamp(probe_ids.long(), 0, full_counts.shape[0] - 1)
+    n_cand = torch.sum(torch.where(probe_valid, full_counts[safe], 0), dim=1,
+                       dtype=torch.int32)
+    return ids, top_scores, n_cand
+
+
 def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
                    full_counts, k: int, g_total: int, max_blocks: int,
                    group_q: int, row_k: int | None, plain: bool):
@@ -81,46 +139,49 @@ def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
             layout.data, grp_qvecs, grp_block, grp_cnt, kk=row_k,
             block_rows=br, norms=layout.norms,
             scale_rows=layout.scale if per_row else None)
-        kk = row_top.shape[2]
-        row_top = row_top.reshape(g_total * group_q, kk)
-        row_lane = row_lane.reshape(g_total * group_q, kk)
+        row_top = row_top.reshape(g_total * group_q, -1)
+        row_lane = row_lane.reshape(g_total * group_q, -1)
     else:
         panel = qk.grouped_scores_plain if plain else qk.grouped_scores
         scores = panel(layout.data, grp_qvecs, grp_block, block_rows=br)
-        blk = grp_block.long()
-        if per_row:  # per-row dequant before the bias and the merge
-            scores = scores * layout.scale.view(-1, br)[blk][:, None, :]
-        if layout.norms is not None:  # euclidean: 2q.c - ||c||^2
-            scores = scores - layout.norms.view(-1, br)[blk][:, None, :]
-        lane = torch.arange(br, device=scores.device)
-        scores = torch.where(lane < grp_cnt[:, :, None], scores, -torch.inf)
-        row_top, row_lane = _largest_k(scores.reshape(g_total * group_q, br),
-                                       min(k, br))
-        kk = row_top.shape[1]
+        row_top, row_lane = _panel_topk(layout, scores, grp_block, None,
+                                        grp_cnt, k)
+    return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,
+                  row_lane, ev_row, ev_block, ev_valid)
 
-    nq, n_probes = probe_ids.shape
-    n_ev = n_probes * max_blocks
-    safe_rows = torch.clamp(ev_row.reshape(nq, n_ev).long(), 0,
-                            g_total * group_q - 1)
-    ev_top = torch.where(ev_valid.reshape(nq, n_ev)[:, :, None],
-                         row_top[safe_rows], -torch.inf)      # (nq, n_ev, kk)
-    ev_lane = row_lane[safe_rows].reshape(nq, -1)
-    flat_top = ev_top.reshape(nq, -1)
-    k_eff = min(k, flat_top.shape[1])  # row_k < k shrinks the pool
-    top_scores, arg = _largest_k(flat_top, k_eff)
-    lane_sel = torch.gather(ev_lane, 1, arg).long()
-    block_sel = torch.gather(ev_block.reshape(nq, -1), 1, arg // kk).long()
-    pos = torch.clamp(block_sel * br + lane_sel, 0, layout.n_rows - 1)
-    ids = torch.where(torch.isfinite(top_scores), layout.row_map[pos], -1)
-    ids = ids.to(torch.int32)
-    if k_eff < k:
-        ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
-        top_scores = torch.nn.functional.pad(top_scores, (0, k - k_eff),
-                                             value=-torch.inf)
-    safe = torch.clamp(probe_ids.long(), 0, full_counts.shape[0] - 1)
-    n_cand = torch.sum(torch.where(probe_valid, full_counts[safe], 0), dim=1,
-                       dtype=torch.int32)
-    return ids, top_scores, n_cand
+
+def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
+                    probe_valid, full_counts, k: int, g_total: int,
+                    max_sub: int, group_q: int, row_k: int | None,
+                    plain: bool):
+    br = layout.br
+    qe = qk.extend_queries(layout, queries)
+    (grp_window, grp_qvecs, grp_lo, grp_hi, ev_row, ev_window,
+     ev_valid) = qk._windowed_prep(
+        layout.starts, layout.counts, probe_ids, probe_valid, qe, layout.cap,
+        g_total=g_total, max_sub=max_sub, group_q=group_q, block_rows=br)
+    per_row = layout.scale is not None and layout.scale.ndim == 1
+    if row_k is None:
+        row_k = k
+    if row_k <= qk.ROW_TOPK:
+        # K3: a window holds distinct corpus rows, so row_k per slot
+        # suffices
+        topk = (qk.windowed_scores_topk_plain if plain
+                else qk.windowed_scores_topk)
+        row_top, row_lane = topk(
+            layout.data, grp_qvecs, grp_window, grp_lo, grp_hi, kk=row_k,
+            block_rows=br, norms=layout.norms,
+            scale_rows=layout.scale if per_row else None)
+        row_top = row_top.reshape(g_total * group_q, -1)
+        row_lane = row_lane.reshape(g_total * group_q, -1)
+    else:
+        # K4 emits raw panels; scale, norms and the [lo, hi) mask follow
+        panel = qk.windowed_scores_plain if plain else qk.windowed_scores
+        scores = panel(layout.data, grp_qvecs, grp_window, block_rows=br)
+        row_top, row_lane = _panel_topk(layout, scores, grp_window, grp_lo,
+                                        grp_hi, k)
+    return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,
+                  row_lane, ev_row, ev_window, ev_valid)
 
 
 @torch.no_grad()
@@ -155,6 +216,47 @@ def serving_query_grouped(layout: qk.ServingLayout, queries, probe_ids,
         return _grouped_query(layout, qs, pid, pv, full_counts, k=k,
                               g_total=g_total, max_blocks=max_blocks,
                               group_q=group_q, row_k=row_k, plain=plain)
+
+    return _chunked_serve(queries, probe_ids, probe_valid, query_chunk,
+                          bound, call)
+
+
+@torch.no_grad()
+def serving_query_windowed(layout: qk.ServingLayout, queries, probe_ids,
+                           probe_valid, full_counts, k: int,
+                           query_chunk: int = 16384,
+                           group_q: int = qk.GROUP_W,
+                           row_k: int | None = None,
+                           g_total_override: int | None = None,
+                           plain: bool = False):
+    """Dense-window serving: the low-occupancy engine.
+
+    Works on any layout alignment (bucket starts ride as ``[lo, hi)``
+    mask values, not block offsets) but pays off on DENSE layouts
+    (``align=8``) whose mean bucket is far below ``block_rows``:
+    neighbouring buckets share windows, so the group count follows the
+    probed windows.  Returns ``(topk_ids (nq, k) i32, topk_scores (nq, k)
+    f32, n_candidates (nq,) i32)`` as :func:`serving_query_grouped`.
+
+    ``row_k`` (default ``k``) bounds the per-slot top-k: up to
+    ``ROW_TOPK`` fused in K3, above it K4 emits raw panels.  The group
+    table is sized by the static bound unless ``g_total_override`` gives
+    it; groups past it are DROPPED, so an override must hold for the
+    batch (see :func:`qk.windowed_needed_groups`).  ``plain=True``
+    scores with the kernels' plain PyTorch versions on any device."""
+    max_sub = layout.cap // layout.br + 1
+    total_windows = layout.n_rows // layout.br
+
+    def bound(c_pad, pid):
+        g_bound = (g_total_override if g_total_override is not None
+                   else qk.windowed_static_bound(
+                       c_pad * pid.shape[1], max_sub, total_windows, group_q))
+        return qk._round_up(max(g_bound, 1), qk._GROUP_EB)
+
+    def call(qs, pid, pv, g_total):
+        return _windowed_query(layout, qs, pid, pv, full_counts, k=k,
+                               g_total=g_total, max_sub=max_sub,
+                               group_q=group_q, row_k=row_k, plain=plain)
 
     return _chunked_serve(queries, probe_ids, probe_valid, query_chunk,
                           bound, call)

@@ -33,8 +33,12 @@ ENTRY_POINTS = {
     # out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream
     "nlsh_grouped_scores_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P],
+    # dtype, qvecs, data, grp_window, grp_lo, grp_hi, norms, scale,
+    # out_scores, out_lanes, g_total, G, d_pad, br, n_windows, kk, stream
+    "nlsh_windowed_scores_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P],
     # dtype, qvecs, data, grp_block, out, g_total, G, d_pad, br,
-    # n_blocks, stream
+    # n_blocks, stream (K2, and K4 on a window table)
     "nlsh_grouped_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -1,4 +1,4 @@
-"""Serving layout, grouped prep and the grouped scoring kernels.
+"""Serving layout, the grouped and windowed preps and their scoring kernels.
 
 Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
 
@@ -12,9 +12,18 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
 * **Grouped prep** (:func:`_grouped_prep_v2`): sorts the (query, probe)
   events by bucket and builds the group tables: one group per
   (bucket block, <= G probing queries).  Torch ops, not kernels.
+* **Windowed prep** (:func:`_windowed_prep`): expands each event into
+  its ``block_rows``-row window sub-events of a dense (8-row-aligned)
+  layout, sorts them by window and builds the group tables: one group
+  per (window, <= G sub-events), each slot carrying its bucket's
+  ``[lo, hi)`` lane range.  With the bounds :func:`windowed_exact_bound`
+  (host), :func:`windowed_needed_groups` (device) and
+  :func:`windowed_static_bound`.  Torch ops, not kernels.
 * **Kernels**: K1 :func:`grouped_scores_topk` (fused scores, mask and
-  per-row top-kk) and K2 :func:`grouped_scores` (raw panels), written in
-  CUDA C++ in ``csrc/grouped_scores.cu``.  Each has its plain PyTorch
+  per-row top-kk), K2 :func:`grouped_scores` (raw panels), K3
+  :func:`windowed_scores_topk` (K1 with a ``[lo, hi)`` mask per slot)
+  and K4 :func:`windowed_scores` (raw windowed panels), written in CUDA
+  C++ in ``csrc/grouped_scores.cu``.  Each has its plain PyTorch
   version beside it (``*_plain``).  A wrapper runs the plain version
   only for tensors on the CPU; on a CUDA tensor it launches its kernel
   or raises.
@@ -45,11 +54,13 @@ import torch
 LANE = 128         # feature dim padded to a multiple (the TPU lane width)
 BLOCK_ROWS = 512   # default rows per grouped-engine block
 GROUP_Q = 8        # the prep's default queries per group
+GROUP_W = 32       # the windowed prep's default queries per group
 _GROUP_EB = 8      # group tables round up to a multiple of this
 ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
 
 # launches of each kernel; a wrapper adds one where it launches
-KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0}
+KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
+                   "windowed_scores_topk": 0, "windowed_scores": 0}
 
 # what csrc/grouped_scores.cu takes; the wrappers check it before a launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # its `dtype` argument
@@ -253,6 +264,16 @@ def _probe_counts(layout_counts, probe_ids, probe_valid, cap: int):
     return safe, counts
 
 
+def _run_ranks(sk):
+    """For sorted keys: the mask of each run's first key, and each key's
+    rank inside its run of equal keys."""
+    pos = torch.arange(sk.shape[0], device=sk.device)
+    unique = torch.ones_like(sk, dtype=torch.bool)
+    unique[1:] = sk[1:] != sk[:-1]
+    first = torch.cummax(torch.where(unique, pos, -1), 0).values
+    return unique, pos - first
+
+
 def _sorted_probe_events(layout_starts, layout_counts, probe_ids,
                          probe_valid, cap: int):
     """Sort (query, probe) events by bucket id.  Returns per sorted event
@@ -265,11 +286,7 @@ def _sorted_probe_events(layout_starts, layout_counts, probe_ids,
     order = torch.argsort(key, stable=True)
     sk = key[order]
     sq = torch.arange(nq, device=key.device).repeat_interleave(n_probes)[order]
-    pos = torch.arange(sk.shape[0], device=key.device)
-    unique = torch.ones_like(sk, dtype=torch.bool)
-    unique[1:] = sk[1:] != sk[:-1]
-    first = torch.cummax(torch.where(unique, pos, -1), 0).values
-    rank = pos - first
+    _, rank = _run_ranks(sk)
     hist = torch.bincount(key, minlength=n_buckets + 1)
     m = hist[torch.clamp(sk, 0, n_buckets)]
     return sk, sq, rank, m, hist, order, counts
@@ -356,7 +373,139 @@ def _grouped_prep_v2(layout_starts, layout_counts, probe_ids, probe_valid,
 
 
 # ---------------------------------------------------------------------------
-# K1 and K2: the CUDA kernels' wrappers and their plain PyTorch versions
+# windowed prep: window sub-events of a dense layout, sorted by window
+# ---------------------------------------------------------------------------
+# A probed bucket of a dense layout spans at most cap // W + 1 windows of
+# W = block_rows rows; neighbouring buckets share windows, so the group
+# count follows the probed windows, not the probed buckets.
+
+def _window_sub_events(layout_starts, layout_counts, probe_ids, probe_valid,
+                       cap: int, max_sub: int, W: int):
+    """Per event, its ``max_sub`` candidate windows ``wj`` and each one's
+    lane range ``[lo, hi)``, all ``(E, max_sub)``, and the valid mask."""
+    n_buckets = layout_counts.shape[0]
+    safe = torch.clamp(probe_ids.long(), 0, n_buckets - 1)
+    ct = torch.where(probe_valid, torch.clamp(layout_counts[safe].long(),
+                                              max=cap), 0).reshape(-1, 1)
+    st = layout_starts[safe].long().reshape(-1, 1)
+    j = torch.arange(max_sub, device=probe_ids.device)
+    wj = st // W + j
+    lo = torch.clamp(st - wj * W, min=0)
+    hi = torch.clamp(st + ct - wj * W, max=W)
+    return wj, lo, hi, (ct > 0) & (hi > lo)
+
+
+def windowed_exact_bound(starts, counts, probe_ids, probe_valid, cap: int,
+                         group_q: int, block_rows: int | None = None) -> int:
+    """EXACT group count of :func:`_windowed_prep` for a concrete probe
+    batch, on the host (numpy): ``sum_w ceil(m_w / G)``, ``m_w`` the
+    window sub-events landing in window ``w``."""
+    W = _br(block_rows)
+    starts, counts, pid, pv = (
+        np.asarray(t.cpu() if torch.is_tensor(t) else t)
+        for t in (starts, counts, probe_ids, probe_valid))
+    pid, pv = pid.reshape(-1), pv.reshape(-1)
+    n_buckets = counts.shape[0]
+    pid = pid[pv & (pid >= 0) & (pid < n_buckets)]
+    ct = np.minimum(counts[pid], cap)
+    st = starts[pid][ct > 0].astype(np.int64)
+    ct = ct[ct > 0]
+    w0 = st // W
+    span = (st + ct - 1) // W - w0 + 1  # windows touched per event
+    n_windows = int((int(starts[-1]) + int(counts[-1]) + W - 1) // W) + 1 \
+        if starts.size else 1
+    m = np.zeros(n_windows, np.int64)
+    for j in range(int(span.max()) if span.size else 0):
+        m += np.bincount(w0[span > j] + j, minlength=n_windows)
+    return int(np.sum(-(-m // group_q)))
+
+
+def windowed_needed_groups(layout_starts, layout_counts, probe_ids,
+                           probe_valid, cap: int, max_sub: int, group_q: int,
+                           n_windows: int,
+                           block_rows: int | None = None) -> torch.Tensor:
+    """The same exact count as :func:`windowed_exact_bound`, on the
+    device (one scatter-add over ``n_windows`` bins; sub-events outside
+    them drop into a sentinel bin): a 0-d int64 tensor, so a caller
+    guards a calibrated group bound with one small read."""
+    wj, _, _, sub_valid = _window_sub_events(
+        layout_starts, layout_counts, probe_ids, probe_valid, cap, max_sub,
+        _br(block_rows))
+    ok = sub_valid & (wj >= 0) & (wj < n_windows)
+    idx = torch.where(ok, wj, n_windows).reshape(-1)
+    m = torch.zeros(n_windows + 1, dtype=torch.int64, device=idx.device)
+    m.scatter_add_(0, idx, torch.ones_like(idx))
+    return torch.sum(-(-m[:n_windows] // group_q))
+
+
+def windowed_static_bound(n_events: int, max_sub: int, total_windows: int,
+                          group_q: int) -> int:
+    """Upper bound on the windowed group count for ANY batch of
+    ``n_events`` probe events: ``E*maxJ/G + min(total_windows, E*maxJ)``."""
+    sub_events = n_events * max_sub
+    probed = min(total_windows, sub_events) if total_windows > 0 \
+        else sub_events
+    return int(-(-sub_events // group_q) + probed)
+
+
+def _windowed_prep(layout_starts, layout_counts, probe_ids, probe_valid,
+                   queries_ext, cap: int, g_total: int, max_sub: int,
+                   group_q: int = GROUP_W, block_rows: int | None = None):
+    """Window sub-events sorted by window, and the group tables.
+
+    Returns ``(grp_window (g,) i32, grp_qvecs (g, G, d_pad) f32,
+    grp_lo (g, G) i32, grp_hi (g, G) i32, ev_row (E, maxJ) i32,
+    ev_window (E, maxJ) i32, ev_valid (E, maxJ) bool)``; empty slots
+    carry ``lo = hi = 0`` and groups past ``g_total`` are dropped, as
+    in the JAX package (size ``g_total`` with a bound that holds)."""
+    W = _br(block_rows)
+    nq, n_probes = probe_ids.shape
+    e = nq * n_probes
+    dev = probe_ids.device
+    wj, lo, hi, sub_valid = _window_sub_events(
+        layout_starts, layout_counts, probe_ids, probe_valid, cap, max_sub, W)
+    qidx = torch.arange(nq, device=dev).repeat_interleave(n_probes)
+
+    big = 2 ** 30
+    key = torch.where(sub_valid, wj, big).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    s_lo = lo.reshape(-1)[order]
+    s_hi = torch.where(sub_valid, hi, 0).reshape(-1)[order]
+    s_q = qidx[:, None].expand(e, max_sub).reshape(-1)[order]
+
+    svalid = sk < big
+    unique, rank = _run_ranks(sk)
+    # a new group at each window and every G sub-events within it
+    new_group = (unique | (rank % group_q == 0)) & svalid
+    g = torch.cumsum(new_group, 0) - 1
+    slot = rank % group_q
+    g_safe = torch.where(svalid, g, g_total)
+
+    grp_window = _scatter_drop(
+        g_total, g_safe, torch.where(svalid, sk, 0).to(torch.int32), 0)
+    n_slots = g_total * group_q
+    gs = torch.where(g_safe < g_total, g_safe * group_q + slot, n_slots)
+    grp_qidx = _scatter_drop(n_slots, gs, s_q, 0).reshape(g_total, group_q)
+    grp_lo = _scatter_drop(n_slots, gs, s_lo.to(torch.int32), 0)
+    grp_hi = _scatter_drop(n_slots, gs, s_hi.to(torch.int32), 0)
+    grp_qvecs = queries_ext[grp_qidx]
+
+    # sub-events back in the ORIGINAL order (order is a permutation)
+    def unsort(values):
+        out = torch.empty_like(values)
+        out[order] = values
+        return out.reshape(e, max_sub)
+
+    ev_row = unsort(torch.where(svalid, g * group_q + slot, 0).to(torch.int32))
+    ev_valid = unsort(svalid)
+    ev_window = unsort(torch.where(svalid, sk, 0).to(torch.int32))
+    return (grp_window, grp_qvecs, grp_lo.reshape(g_total, group_q),
+            grp_hi.reshape(g_total, group_q), ev_row, ev_window, ev_valid)
+
+
+# ---------------------------------------------------------------------------
+# K1-K4: the CUDA kernels' wrappers and their plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 _PLAIN_CHUNK = 1024  # groups per step of the plain versions (bounds memory)
@@ -381,15 +530,10 @@ def grouped_scores_plain(data, grp_qvecs, grp_block,
     return out
 
 
-def grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt, kk: int,
-                              block_rows: int | None = None, norms=None,
-                              scale_rows=None):
-    """Plain K1: ``(scores (g_total, G, kk) f32, lanes (g_total, G, kk)
-    i32)`` — the panel times ``scale_rows``, minus ``norms``, lanes
-    ``>= grp_cnt`` masked to -inf, then each row's top ``kk`` by a stable
-    descending sort (lowest lane first among ties).  Lanes under a -inf
-    score are unspecified."""
-    br = _br(block_rows)
+def _scores_topk_plain(data, grp_qvecs, grp_block, grp_lo, grp_hi, kk: int,
+                       br: int, norms, scale_rows):
+    """Plain K1 (``grp_lo`` None: lanes ``< grp_hi`` kept) and plain K3
+    (lanes in ``[grp_lo, grp_hi)`` kept)."""
     kk = min(max(int(kk), 1), ROW_TOPK)
     g_total, G, _ = grp_qvecs.shape
     dev = grp_qvecs.device
@@ -405,11 +549,43 @@ def grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt, kk: int,
             p = p * scale_rows.view(-1, br)[blk][:, None, :]
         if norms is not None:
             p = p - norms.view(-1, br)[blk][:, None, :]
-        p = torch.where(lane < grp_cnt[s:e, :, None], p, -torch.inf)
+        keep = lane < grp_hi[s:e, :, None]
+        if grp_lo is not None:
+            keep &= lane >= grp_lo[s:e, :, None]
+        p = torch.where(keep, p, -torch.inf)
         v, i = torch.sort(p, dim=2, descending=True, stable=True)
         scores[s:e] = v[..., :kk]
         lanes[s:e] = i[..., :kk].to(torch.int32)
     return scores, lanes
+
+
+def grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt, kk: int,
+                              block_rows: int | None = None, norms=None,
+                              scale_rows=None):
+    """Plain K1: ``(scores (g_total, G, kk) f32, lanes (g_total, G, kk)
+    i32)`` — the panel times ``scale_rows``, minus ``norms``, lanes
+    ``>= grp_cnt`` masked to -inf, then each row's top ``kk`` by a stable
+    descending sort (lowest lane first among ties).  Lanes under a -inf
+    score are unspecified."""
+    return _scores_topk_plain(data, grp_qvecs, grp_block, None, grp_cnt, kk,
+                              _br(block_rows), norms, scale_rows)
+
+
+def windowed_scores_topk_plain(data, grp_qvecs, grp_window, grp_lo, grp_hi,
+                               kk: int, block_rows: int | None = None,
+                               norms=None, scale_rows=None):
+    """Plain K3: as :func:`grouped_scores_topk_plain` over the windows
+    ``grp_window``, each slot keeping only the lanes in ``[grp_lo,
+    grp_hi)``."""
+    return _scores_topk_plain(data, grp_qvecs, grp_window, grp_lo, grp_hi,
+                              kk, _br(block_rows), norms, scale_rows)
+
+
+def windowed_scores_plain(data, grp_qvecs, grp_window,
+                          block_rows: int | None = None) -> torch.Tensor:
+    """Plain K4: raw ``(g_total, G, block_rows)`` f32 panels of the
+    windows ``grp_window`` (no scale, norms or mask)."""
+    return grouped_scores_plain(data, grp_qvecs, grp_window, block_rows)
 
 
 def _check(name: str, t: torch.Tensor, dtypes, shape, device):
@@ -427,7 +603,7 @@ def _check_launch(data, grp_qvecs, grp_block, br: int, topk: bool):
     """Validate the common operands of a CUDA launch; returns the
     shape numbers the kernel takes."""
     if data.device.type != "cuda":
-        raise ValueError(f"the grouped kernels run on CUDA tensors, got {data.device}")
+        raise ValueError(f"the scoring kernels run on CUDA tensors, got {data.device}")
     dev = data.device
     n_aligned, d_pad = data.shape
     g_total, G, _ = grp_qvecs.shape
@@ -456,6 +632,16 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def _check_rows(data, norms, scale_rows):
+    for name, t in (("norms", norms), ("scale_rows", scale_rows)):
+        if t is not None:
+            _check(name, t, (torch.float32,), (data.shape[0],), data.device)
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
 def grouped_scores_topk(data, grp_qvecs, grp_block, grp_cnt, kk: int,
                         block_rows: int | None = None, norms=None,
                         scale_rows=None):
@@ -473,19 +659,15 @@ def grouped_scores_topk(data, grp_qvecs, grp_block, grp_cnt, kk: int,
                                                 br, topk=True)
     dev = data.device
     _check("grp_cnt", grp_cnt, (torch.int32,), (g_total, G), dev)
-    for name, t in (("norms", norms), ("scale_rows", scale_rows)):
-        if t is not None:
-            _check(name, t, (torch.float32,), (data.shape[0],), dev)
+    _check_rows(data, norms, scale_rows)
     scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
     lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
     from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    lib = load_library()
-    err = lib.nlsh_grouped_scores_topk(
+    err = load_library().nlsh_grouped_scores_topk(
         _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
         _ptr(grp_cnt), _ptr(norms), _ptr(scale_rows), _ptr(scores),
-        _ptr(lanes), g_total, G, d_pad, br, n_blocks, kk,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(lanes), g_total, G, d_pad, br, n_blocks, kk, _stream(dev))
     _raise_on(err, "grouped_scores_topk")
     KERNEL_LAUNCHES["grouped_scores_topk"] += 1
     return scores, lanes
@@ -498,17 +680,74 @@ def grouped_scores(data, grp_qvecs, grp_block,
     take the plain version; CUDA tensors launch the kernel."""
     if data.device.type == "cpu":
         return grouped_scores_plain(data, grp_qvecs, grp_block, block_rows)
+    out = _launch_panels(data, grp_qvecs, grp_block, _br(block_rows),
+                         "grouped_scores")
+    KERNEL_LAUNCHES["grouped_scores"] += 1
+    return out
+
+
+def windowed_scores_topk(data, grp_qvecs, grp_window, grp_lo, grp_hi,
+                         kk: int, block_rows: int | None = None, norms=None,
+                         scale_rows=None):
+    """K3, the fused windowed score + per-row top-``kk`` (replaces
+    ``_windowed_scores_topk`` of the JAX package): K1's kernel body with
+    a ``[grp_lo, grp_hi)`` lane range per slot.  Returns ``(scores,
+    lanes)`` of shape ``(g_total, G, kk)``; see
+    :func:`windowed_scores_topk_plain`.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if data.device.type == "cpu":
+        return windowed_scores_topk_plain(data, grp_qvecs, grp_window, grp_lo,
+                                          grp_hi, kk, block_rows, norms,
+                                          scale_rows)
     br = _br(block_rows)
+    kk = min(max(int(kk), 1), ROW_TOPK)
+    g_total, G, d_pad, n_windows = _check_launch(data, grp_qvecs, grp_window,
+                                                 br, topk=True)
+    dev = data.device
+    _check("grp_lo", grp_lo, (torch.int32,), (g_total, G), dev)
+    _check("grp_hi", grp_hi, (torch.int32,), (g_total, G), dev)
+    _check_rows(data, norms, scale_rows)
+    scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
+    lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    err = load_library().nlsh_windowed_scores_topk(
+        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data),
+        _ptr(grp_window), _ptr(grp_lo), _ptr(grp_hi), _ptr(norms),
+        _ptr(scale_rows), _ptr(scores), _ptr(lanes), g_total, G, d_pad, br,
+        n_windows, kk, _stream(dev))
+    _raise_on(err, "windowed_scores_topk")
+    KERNEL_LAUNCHES["windowed_scores_topk"] += 1
+    return scores, lanes
+
+
+def windowed_scores(data, grp_qvecs, grp_window,
+                    block_rows: int | None = None) -> torch.Tensor:
+    """K4, the raw ``(g_total, G, block_rows)`` windowed score panels
+    (replaces ``_windowed_scores`` of the JAX package).  A window is
+    ``block_rows`` rows and the layout a whole number of them, so a
+    window id is a block id and this launches K2's kernel on the window
+    table; it keeps its own plain version and launch count.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if data.device.type == "cpu":
+        return windowed_scores_plain(data, grp_qvecs, grp_window, block_rows)
+    out = _launch_panels(data, grp_qvecs, grp_window, _br(block_rows),
+                         "windowed_scores")
+    KERNEL_LAUNCHES["windowed_scores"] += 1
+    return out
+
+
+def _launch_panels(data, grp_qvecs, grp_block, br: int,
+                   name: str) -> torch.Tensor:
+    """Launch the raw-panel kernel (K2's, also K4's) on validated
+    operands."""
     g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
                                                 br, topk=False)
     out = torch.empty((g_total, G, br), dtype=torch.float32, device=data.device)
     from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    lib = load_library()
-    err = lib.nlsh_grouped_scores(
+    err = load_library().nlsh_grouped_scores(
         _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
-        _ptr(out), g_total, G, d_pad, br, n_blocks,
-        ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream))
-    _raise_on(err, "grouped_scores")
-    KERNEL_LAUNCHES["grouped_scores"] += 1
+        _ptr(out), g_total, G, d_pad, br, n_blocks, _stream(data.device))
+    _raise_on(err, name)
     return out

@@ -12,13 +12,16 @@ Two parts:
 * :func:`params_from_jax` — loads such a tree (numpy arrays) into a
   hashing module.  JAX keeps ``w`` as ``(fan_in, fan_out)`` and
   ``nn.Linear`` as ``(out, in)``, so it transposes.
+  :func:`stacked_params_from_jax` does the same for an ensemble's
+  stacked tree (every leaf with a leading ``(L, ...)`` table axis), one
+  module per table.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -160,3 +163,35 @@ def params_from_jax(hashing: nn.Module, tree: dict) -> nn.Module:
                 f"module shape {tuple(own[name].shape)}")
     hashing.load_state_dict(state, strict=True)
     return hashing
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _table_slice(tree, t: int):
+    if isinstance(tree, dict):
+        return {key: _table_slice(v, t) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_table_slice(v, t) for v in tree]
+    return tree[t]
+
+
+def stacked_params_from_jax(make_hashing: Callable[[], nn.Module],
+                            tree: dict) -> list[nn.Module]:
+    """Load an ensemble's stacked params (the JAX package's
+    ``init_multi_table`` / multi-table trainer output: every leaf has a
+    leading table axis ``L``) into ``L`` fresh modules from
+    ``make_hashing()``, one :func:`params_from_jax` per table.  Raises if
+    the leaves disagree on ``L``."""
+    sizes = {np.shape(leaf)[0] if np.ndim(leaf) else None
+             for leaf in _leaves(tree)}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"stacked params disagree on the table axis: {sizes}")
+    (n_tables,) = sizes
+    return [params_from_jax(make_hashing(), _table_slice(tree, t))
+            for t in range(n_tables)]

@@ -1,10 +1,17 @@
-"""The port's main path at full size on the CPU (``slow``; run by hand).
+"""The port's serving paths at full size on the CPU (``slow``; run by hand).
 
-The bench workload (1,183,514 x 100, 10,000 queries, seed 0) through
-``nlsh_tpu_torch.Indexer`` with the committed trained params: 16 flip
-probes, cap 512, k = 10, f32.  Exact f32 throughout, so it must give the
-JAX package's exact-f32 CPU values: recall@10 0.74264 and mean
-n_candidates 4670.30.  Imports no JAX, so it also runs where JAX is not
+The bench workload (1,183,514 x 100, 10,000 queries, seed 0), f32, k = 10:
+
+* through ``nlsh_tpu_torch.Indexer`` with the committed trained params,
+  16 flip probes, cap 512: the JAX package's exact-f32 CPU values,
+  recall@10 0.74264 and mean n_candidates 4670.30;
+* through ``nlsh_tpu_torch.parallel.MultiTableIndexer`` with the
+  committed 8-table ensemble, 4 flip probes per table, the windowed
+  engine after ``calibrate``: recall@10 0.99211, mean n_candidates
+  (summed per-table occupancy) 9539.69 and mean exact query_size
+  8881.76, the JAX package's exact-f32 CPU values.
+
+Exact f32 throughout.  Imports no JAX, so it also runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m slow tests/test_torch_full.py
@@ -17,27 +24,37 @@ import pytest
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CACHE = os.path.join(_ROOT, "benchmarks", "artifacts", "bench_cache")
+_GT = "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz"
+
+
+def _workload():
+    import sys
+
+    sys.path.insert(0, _ROOT)
+    import bench
+
+    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
+    with np.load(os.path.join(_CACHE, _GT)) as z:
+        return corpus, queries, z["gt"]
+
+
+def _make_hashing():
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+
+    return get_hashing("MultivariateBernoulli",
+                       get_encoder("siren", 100, [256, 256]), 12)
 
 
 @pytest.mark.slow
 def test_full_bench_workload_on_cpu():
-    import sys
-
     import torch
 
-    sys.path.insert(0, _ROOT)
-    import bench
     from nlsh_tpu_torch.index import Indexer
-    from nlsh_tpu_torch.models import get_encoder, get_hashing
     from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
-    with np.load(os.path.join(
-            _CACHE, "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz")) as z:
-        gt = z["gt"]
-    hashing = get_hashing("MultivariateBernoulli",
-                          get_encoder("siren", 100, [256, 256]), 12)
+    corpus, queries, gt = _workload()
+    hashing = _make_hashing()
     params_from_jax(hashing, read_msgpack(os.path.join(
         _CACHE, "params_s0_n1183514_d100_q10000_k10_ts131072_v2_4da04f430c.msgpack")))
     idx = Indexer(hashing, torch.from_numpy(corpus), device="cpu",
@@ -48,3 +65,29 @@ def test_full_bench_workload_on_cpu():
     recall = calculate_recall(gt, ids, np.mean)
     assert abs(recall - 0.74264) <= 0.0005, recall
     assert abs(n_cand.mean() - 4670.30) <= 0.5, n_cand.mean()
+
+
+@pytest.mark.slow
+def test_full_ensemble_on_cpu():
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.checkpoint import read_msgpack, stacked_params_from_jax
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    corpus, queries, gt = _workload()
+    hashings = stacked_params_from_jax(_make_hashing, read_msgpack(os.path.join(
+        _CACHE, "cfgparams_mthr_glove100_b12_s600_b2048_t8_v2.msgpack"))["hashing"])
+    idx = MultiTableIndexer(hashings, torch.from_numpy(corpus), device="cpu",
+                            metric="cosine")
+    assert idx.engine == "windowed"
+    assert idx.probe_budget == 586
+    assert int((idx.counts > 0).sum()) == 8 * 4096
+    kw = dict(hash_times=4, probe_mode="flip")
+    idx.calibrate(queries, **kw)
+    ids, n_cand = idx.query(queries, k=10, **kw)
+    recall = calculate_recall(gt, ids, np.mean)
+    assert abs(recall - 0.99211) <= 0.0005, recall
+    assert abs(n_cand.mean() - 9539.69) <= 0.5, n_cand.mean()
+    size = idx.exact_query_size(queries, **kw)
+    assert abs(size.mean() - 8881.76) <= 0.5, size.mean()

@@ -30,5 +30,6 @@ def test_port_imports_no_jax():
     for name in ("ops.packing", "ops.distances", "ops.cuda.query_kernel",
                  "ops.cuda.build", "models.encoders", "models.hashings",
                  "index.bucket_table", "index.indexer", "index.query",
-                 "index.serving", "utils.checkpoint", "utils.metrics"):
+                 "index.serving", "parallel", "parallel.multitable",
+                 "utils.checkpoint", "utils.metrics"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]

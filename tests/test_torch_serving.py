@@ -3,7 +3,7 @@
 ``serving_query_grouped`` of the port (plain kernels on the CPU) against
 the JAX package's (Pallas in interpret mode) on the same layout inputs,
 and the port's ``Indexer`` against the JAX ``Indexer(engine=
-"pallas-grouped")``.  ``n_candidates`` must match exactly; ids agree on
+"pallas-grouped")`` and ``Indexer(engine="pallas-windowed")``.  ``n_candidates`` must match exactly; ids agree on
 at least 0.98 of slots (the gate of ``tests/test_serving.py``: f32
 summation order may swap near-tied neighbours); scores within 1e-5."""
 
@@ -115,6 +115,29 @@ def test_indexer_matches_jax_grouped_engine(metric):
     assert (g_ids == t_ids).mean() >= 0.98
 
 
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_indexer_matches_jax_windowed_engine(metric):
+    """The windowed engine on a dense (8-row-aligned) layout against the
+    JAX ``Indexer(engine="pallas-windowed")``, and against the port's own
+    grouped engine; switching engines rebuilds the layout."""
+    queries, ji, ti = _indexers(metric, seed=11)
+    ji.engine, ti.engine = "pallas-windowed", "windowed"
+    assert ti.layout.align == 8
+    for name in ("row_map", "starts", "counts"):
+        np.testing.assert_array_equal(getattr(ti.layout, name).numpy(),
+                                      np.asarray(getattr(ji.layout, name)))
+    j_ids, j_cand = ji.query(jnp.asarray(queries), k=10, hash_times=6,
+                             probe_mode="flip")
+    w_ids, w_cand = ti.query(queries, k=10, hash_times=6, probe_mode="flip")
+    np.testing.assert_array_equal(w_cand, np.asarray(j_cand))
+    assert (w_ids == np.asarray(j_ids)).mean() >= 0.98
+    ti.engine = "grouped"
+    assert ti.layout.align == ti.layout.cap
+    g_ids, g_cand = ti.query(queries, k=10, hash_times=6, probe_mode="flip")
+    np.testing.assert_array_equal(g_cand, w_cand)
+    assert (g_ids == w_ids).mean() >= 0.98
+
+
 def test_indexer_async_fetch_sampling_and_knobs():
     queries, _, ti = _indexers("cosine", seed=10)
     ids, cand = ti.query(queries, k=5, hash_times=4,
@@ -158,5 +181,28 @@ def test_indexer_grouped_engine_on_the_card(cuda_device, metric):
         g_ids, g_cand = idx.query(queries, k=k, hash_times=8,
                                   probe_mode="flip")
         idx.engine = "grouped"
+        np.testing.assert_array_equal(cand, g_cand)
+        assert (ids == g_ids).mean() >= 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_indexer_windowed_engine_on_the_card(cuda_device, metric):
+    """The Indexer serves through K3 (k <= 16) and K4 (k > 16) on the
+    card and agrees with the grouped engine."""
+    rng = np.random.default_rng(7)
+    corpus = rng.normal(size=(20000, 32)).astype(np.float32)
+    queries = rng.normal(size=(300, 32)).astype(np.float32)
+    torch.manual_seed(1)
+    hashing = MultivariateBernoulli(MLPEncoder(32, (64,)), 8)
+    idx = Indexer(hashing, corpus, device=cuda_device, metric=metric)
+    for k, kernel in ((10, "windowed_scores_topk"), (20, "windowed_scores")):
+        idx.engine = "windowed"
+        before = qk.KERNEL_LAUNCHES[kernel]
+        ids, cand = idx.query(queries, k=k, hash_times=8, probe_mode="flip")
+        assert qk.KERNEL_LAUNCHES[kernel] > before
+        idx.engine = "grouped"
+        g_ids, g_cand = idx.query(queries, k=k, hash_times=8,
+                                  probe_mode="flip")
         np.testing.assert_array_equal(cand, g_cand)
         assert (ids == g_ids).mean() >= 0.98
