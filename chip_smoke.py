@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving paths once on one GPU and check them.
 
-    python3 chip_smoke.py          # from the repo root, on a CUDA machine
+    python3 chip_smoke.py            # from the repo root, on a CUDA machine
+    python3 chip_smoke.py --profile  # also profile 3 ensemble serve passes
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
 power limit line), the kernel build, K1-K4 against their plain PyTorch
@@ -15,9 +16,11 @@ recall@10 against the committed exact ground truth):
   the same serve on the windowed engine (K3 at k=10, K4 at k=20);
 * the L=8 ensemble (the committed 8-table params, 4 flip probes per
   table): ``MultiTableIndexer`` build, ``calibrate`` and the serve on the
-  windowed engine (K3; recall, summed and exact candidates, QPS), K3/K4
-  times at the ensemble's group tables, and parity against the plain
-  scorer and the grouped and gather engines.
+  windowed engine (K3; recall, summed and exact candidates, QPS, all
+  with the batch's own calibration), K3/K4 times at the ensemble's group
+  tables, parity against the plain scorer and the grouped and gather
+  engines, and the guard: after a starved calibration the same batch
+  takes the static group bound and answers exactly as before.
 
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
@@ -542,13 +545,22 @@ def _flat_probes(midx, queries: np.ndarray):
                                                probe_mode="flip"))
 
 
+def _static_groups(layout, gp) -> int:
+    """The windowed static group bound of the flat probes ``gp``."""
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    return qk.windowed_static_bound(gp.numel(), layout.cap // layout.br + 1,
+                                    layout.n_rows // layout.br, qk.GROUP_W)
+
+
 def phase_ensemble_serve(midx, queries: np.ndarray, gt: np.ndarray):
-    """The ensemble's run: ``calibrate`` on the queries, then all 10,000
-    through ``MultiTableIndexer.query`` on the windowed engine (K3).
-    Returns the ids, summed candidates and the launch counts."""
+    """The ensemble's run: ``calibrate`` on the queries themselves, then
+    all 10,000 through ``MultiTableIndexer.query`` on the windowed engine
+    (K3), so the batch fits its calibration by construction (the static
+    bound is :func:`phase_ensemble_guard`'s).  Returns the ids, summed
+    candidates and the launch counts."""
     import torch
 
-    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
@@ -556,8 +568,7 @@ def phase_ensemble_serve(midx, queries: np.ndarray, gt: np.ndarray):
     layout = midx._serving_layout()
     gp, gv = _flat_probes(midx, queries)
     override, needed = midx.windowed_group_bound(layout, gp, gv)
-    static = qk.windowed_static_bound(gp.numel(), layout.cap // layout.br + 1,
-                                      layout.n_rows // layout.br, qk.GROUP_W)
+    static = _static_groups(layout, gp)
     check(override == g_cal, f"the batch ({needed} groups) does not fit its "
           f"own calibration ({g_cal})")
 
@@ -649,6 +660,39 @@ def phase_ensemble_kernel_times(midx, queries: np.ndarray) -> dict:
     return out
 
 
+def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
+    """``torch.profiler`` over 3 ensemble serve passes (``--profile``):
+    the unprofiled wall time per pass, the device time per pass, and the
+    costliest kernels and copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        midx.query(queries, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            midx.query(queries, **kw)
+        torch.cuda.synchronize()
+    # device-side events only: an operator's own entry repeats the time
+    # of the kernels it launched
+    ops = [e for e in prof.key_averages()
+           if e.device_type != torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in ops) / 3e3
+    check(device_ms > 0, "the profile saw no device time")
+    emit("ensemble_profile", passes=3, wall_ms_per_pass=wall_ms,
+         device_ms_per_pass=device_ms,
+         device_events_per_pass=sum(e.count for e in ops) / 3,
+         top=[{"op": e.key[:80], "ms_per_pass": e.self_device_time_total / 3e3,
+               "calls_per_pass": e.count / 3} for e in ops[:15]])
+
+
 def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
     """Windowed with K3 vs its plain scorer (all queries, >= 0.999), vs
     the grouped engine (all queries, >= 0.999, equal candidates), and vs
@@ -681,7 +725,46 @@ def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
     return out
 
 
+def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
+    """A starved calibration (4 queries, one probe per table): the full
+    batch's exact need exceeds it, so the serve must take the static
+    group bound and give the calibrated serve's ids and candidates."""
+    import torch
+
+    g_starved = midx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
+    layout = midx._serving_layout()
+    gp, gv = _flat_probes(midx, queries)
+    override, needed = midx.windowed_group_bound(layout, gp, gv)
+    check(override is None and needed > g_starved,
+          f"a batch of {needed} groups was served on a starved calibration "
+          f"of {g_starved}")
+    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    s_ids, s_cand = midx.query(queries, **kw)
+    check(bool(np.array_equal(s_cand, n_cand)),
+          "static-bound serve: n_candidates differ from the calibrated serve")
+    check(bool(np.array_equal(s_ids, ids)),
+          "static-bound serve: ids differ from the calibrated serve")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        midx.query(queries, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    static = _static_groups(layout, gp)
+    emit("ensemble_guard", groups_calibrated=g_starved, groups_needed=needed,
+         groups_static=static, ids_equal=True, n_candidates_equal=True,
+         pass_s=times, median_s=med, qps=queries.shape[0] / med)
+    return {"groups_calibrated": g_starved, "groups_needed": needed}
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile 3 ensemble serve passes")
+    args = parser.parse_args()
     import bench  # fails, before any output, outside a checkout of the repo
     import nlsh_tpu_torch  # noqa: F401
 
@@ -702,8 +785,11 @@ def main() -> int:
     midx = phase_ensemble_index(corpus)
     mt_ids, mt_cand, mt_launches = phase_ensemble_serve(midx, queries, gt)
     launches.update(mt_launches)
+    if args.profile:
+        phase_ensemble_profile(midx, queries)
     times.update(phase_ensemble_kernel_times(midx, queries))
     phase_ensemble_parity(midx, queries, mt_ids, mt_cand)
+    phase_ensemble_guard(midx, queries, mt_ids, mt_cand)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SRC,

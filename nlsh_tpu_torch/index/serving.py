@@ -187,7 +187,8 @@ def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
 @torch.no_grad()
 def serving_query_grouped(layout: qk.ServingLayout, queries, probe_ids,
                           probe_valid, full_counts, k: int,
-                          query_chunk: int = 16384, group_q: int = 32,
+                          query_chunk: int = 16384,
+                          group_q: int = qk.GROUP_W,
                           row_k: int | None = None,
                           g_total_override: int | None = None,
                           plain: bool = False):

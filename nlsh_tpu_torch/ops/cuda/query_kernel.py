@@ -16,8 +16,8 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   its ``block_rows``-row window sub-events of a dense (8-row-aligned)
   layout, sorts them by window and builds the group tables: one group
   per (window, <= G sub-events), each slot carrying its bucket's
-  ``[lo, hi)`` lane range.  With the bounds :func:`windowed_exact_bound`
-  (host), :func:`windowed_needed_groups` (device) and
+  ``[lo, hi)`` lane range.  With the bounds
+  :func:`windowed_needed_groups` (exact, on the device) and
   :func:`windowed_static_bound`.  Torch ops, not kernels.
 * **Kernels**: K1 :func:`grouped_scores_topk` (fused scores, mask and
   per-row top-kk), K2 :func:`grouped_scores` (raw panels), K3
@@ -54,7 +54,7 @@ import torch
 LANE = 128         # feature dim padded to a multiple (the TPU lane width)
 BLOCK_ROWS = 512   # default rows per grouped-engine block
 GROUP_Q = 8        # the prep's default queries per group
-GROUP_W = 32       # the windowed prep's default queries per group
+GROUP_W = 32       # queries per group of the grouped and windowed serves
 _GROUP_EB = 8      # group tables round up to a multiple of this
 ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
 
@@ -395,39 +395,16 @@ def _window_sub_events(layout_starts, layout_counts, probe_ids, probe_valid,
     return wj, lo, hi, (ct > 0) & (hi > lo)
 
 
-def windowed_exact_bound(starts, counts, probe_ids, probe_valid, cap: int,
-                         group_q: int, block_rows: int | None = None) -> int:
-    """EXACT group count of :func:`_windowed_prep` for a concrete probe
-    batch, on the host (numpy): ``sum_w ceil(m_w / G)``, ``m_w`` the
-    window sub-events landing in window ``w``."""
-    W = _br(block_rows)
-    starts, counts, pid, pv = (
-        np.asarray(t.cpu() if torch.is_tensor(t) else t)
-        for t in (starts, counts, probe_ids, probe_valid))
-    pid, pv = pid.reshape(-1), pv.reshape(-1)
-    n_buckets = counts.shape[0]
-    pid = pid[pv & (pid >= 0) & (pid < n_buckets)]
-    ct = np.minimum(counts[pid], cap)
-    st = starts[pid][ct > 0].astype(np.int64)
-    ct = ct[ct > 0]
-    w0 = st // W
-    span = (st + ct - 1) // W - w0 + 1  # windows touched per event
-    n_windows = int((int(starts[-1]) + int(counts[-1]) + W - 1) // W) + 1 \
-        if starts.size else 1
-    m = np.zeros(n_windows, np.int64)
-    for j in range(int(span.max()) if span.size else 0):
-        m += np.bincount(w0[span > j] + j, minlength=n_windows)
-    return int(np.sum(-(-m // group_q)))
-
-
 def windowed_needed_groups(layout_starts, layout_counts, probe_ids,
                            probe_valid, cap: int, max_sub: int, group_q: int,
                            n_windows: int,
                            block_rows: int | None = None) -> torch.Tensor:
-    """The same exact count as :func:`windowed_exact_bound`, on the
-    device (one scatter-add over ``n_windows`` bins; sub-events outside
-    them drop into a sentinel bin): a 0-d int64 tensor, so a caller
-    guards a calibrated group bound with one small read."""
+    """EXACT group count of :func:`_windowed_prep` for a concrete probe
+    batch, ``sum_w ceil(m_w / G)`` with ``m_w`` the window sub-events
+    landing in window ``w``, on the device (one scatter-add over
+    ``n_windows`` bins; sub-events outside them drop into a sentinel
+    bin): a 0-d int64 tensor, so a caller sizes or guards a group table
+    with one small read."""
     wj, _, _, sub_valid = _window_sub_events(
         layout_starts, layout_counts, probe_ids, probe_valid, cap, max_sub,
         _br(block_rows))

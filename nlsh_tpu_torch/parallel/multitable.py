@@ -49,12 +49,22 @@ from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
-_GROUP_G = 32  # queries per group of the grouped engine here
+_CAL_MARGIN = 1.1  # calibrate's headroom over the batch's exact need
 
 
 def _mt_query_chunk(L: int, n_probes: int, budget: int, dim: int) -> int:
     per_query = max(L * n_probes * budget * dim * 4, 1)
     return int(max(4, min(512, _GATHER_BUDGET_BYTES // per_query)))
+
+
+def _windowed_needed(layout: qk.ServingLayout, gp, gv) -> int:
+    """The exact group count of a windowed serve of the flat probes
+    ``(gp, gv)`` on ``layout``: one device reduction, one int read."""
+    br = layout.br
+    return int(qk.windowed_needed_groups(
+        layout.starts, layout.counts, gp, gv, layout.cap,
+        max_sub=layout.cap // br + 1, group_q=qk.GROUP_W,
+        n_windows=-(-layout.n_rows // br) + 1, block_rows=br))
 
 
 def _union_rows(row_ids, starts, counts, pids, pvalid, budget: int,
@@ -281,7 +291,6 @@ class MultiTableIndexer:
     @torch.no_grad()
     def exact_query_size(self, queries, hash_times: int = 1,
                          generator: torch.Generator | None = None,
-                         query_chunk: int | None = None,
                          probe_mode: str = "sample") -> np.ndarray:
         """Exact distinct-candidate count per query, ``(nq,)`` int32: the
         engine-independent query_size (the windowed and grouped engines
@@ -292,9 +301,8 @@ class MultiTableIndexer:
                                   device=self.device)
         pids, pvalid = self._probes(queries, hash_times, generator,
                                     probe_mode)
-        if query_chunk is None:
-            query_chunk = _mt_query_chunk(self.n_tables, hash_times,
-                                          self.probe_budget, 1)
+        query_chunk = _mt_query_chunk(self.n_tables, hash_times,
+                                      self.probe_budget, 1)
         n_rows = self.corpus.shape[0]
         out = [torch.sum(_union_rows(
             self.row_ids, self.starts, self.counts, pids[:, s:s + query_chunk],
@@ -308,24 +316,22 @@ class MultiTableIndexer:
     @torch.no_grad()
     def calibrate(self, queries, hash_times: int = 1,
                   generator: torch.Generator | None = None,
-                  margin: float = 1.1, probe_mode: str = "sample") -> int:
+                  probe_mode: str = "sample") -> int:
         """Size the windowed engine's group table from a representative
-        batch: its exact group count (one host sync, here), times
-        ``margin``, rounded up to ``_GROUP_EB`` and clamped to the static
-        bound.  Later windowed serves use it when a batch's exact need
-        fits it and the static bound otherwise.  Returns the group
-        count."""
+        batch: its exact group count (one device reduction, read on the
+        host), times ``_CAL_MARGIN``, rounded up to ``_GROUP_EB`` and
+        clamped to the static bound.  Later windowed serves use it when a
+        batch's exact need fits it and the static bound otherwise.
+        Returns the group count."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         layout = self._serving_layout()
         br = layout.br
         gp, gv = self._flat_probes(*self._probes(queries, hash_times,
                                                  generator, probe_mode))
-        needed = qk.windowed_exact_bound(layout.starts, layout.counts, gp, gv,
-                                         layout.cap, qk.GROUP_W,
-                                         block_rows=br)
-        g_cal = qk._GROUP_EB * max(-(-int(needed * margin) // qk._GROUP_EB),
-                                   1)
+        needed = _windowed_needed(layout, gp, gv)
+        g_cal = qk._GROUP_EB * max(
+            -(-int(needed * _CAL_MARGIN) // qk._GROUP_EB), 1)
         static = qk.windowed_static_bound(gp.numel(), layout.cap // br + 1,
                                           layout.n_rows // br, qk.GROUP_W)
         self._g_cal = int(min(g_cal, static))
@@ -339,11 +345,7 @@ class MultiTableIndexer:
         None without a calibration."""
         if self._g_cal is None:
             return None, None
-        br = layout.br
-        needed = int(qk.windowed_needed_groups(
-            layout.starts, layout.counts, gp, gv, layout.cap,
-            max_sub=layout.cap // br + 1, group_q=qk.GROUP_W,
-            n_windows=-(-layout.n_rows // br) + 1, block_rows=br))
+        needed = _windowed_needed(layout, gp, gv)
         return (self._g_cal if needed <= self._g_cal else None), needed
 
     def _query_serving(self, queries, pids, pvalid, k: int, plain: bool):
@@ -364,12 +366,11 @@ class MultiTableIndexer:
             # ensemble buckets have low multiplicity, so the static bound
             # is several-fold loose: one host read for the exact one
             g_exact = qk.grouped_exact_bound(layout.counts, gp, gv, cap,
-                                             _GROUP_G, block_rows=br)
+                                             qk.GROUP_W, block_rows=br)
             static = qk.grouped_static_bound(gp.numel(), cap // br,
-                                             layout.total_blocks, _GROUP_G)
+                                             layout.total_blocks, qk.GROUP_W)
             ids, scores, n_cand = serving_query_grouped(
-                layout, queries, gp, gv, layout.counts, k=k_fetch,
-                group_q=_GROUP_G, row_k=k,
+                layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
                 g_total_override=qk.round_group_override(g_exact, static),
                 plain=plain)
         merged, _ = self._dedupe_topk(ids, scores, k, self.corpus.shape[0])

@@ -19,6 +19,7 @@ import torch
 
 from nlsh_tpu.models import get_encoder as j_encoder
 from nlsh_tpu.models import get_hashing as j_hashing
+from nlsh_tpu.ops.pallas import query_kernel as jqk
 from nlsh_tpu.parallel.multitable import MultiTableIndexer as JMT
 from nlsh_tpu.parallel.multitable import init_multi_table
 from nlsh_tpu_torch.models import get_encoder, get_hashing
@@ -198,8 +199,9 @@ def test_calibrate_guard_and_engine_switch():
                                          probe_mode="flip"))
     override, needed = tm.windowed_group_bound(layout, gp, gv)
     assert override == g and needed <= g
-    assert needed == qk.windowed_exact_bound(layout.starts, layout.counts, gp,
-                                             gv, layout.cap, qk.GROUP_W, BR)
+    assert needed == jqk.windowed_exact_bound(
+        layout.starts.numpy(), layout.counts.numpy(), gp.numpy(), gv.numpy(),
+        layout.cap, qk.GROUP_W, BR)
     c_ids, c_cand = tm.query(queries, **kw)
     ref = _tmt(hashings, corpus, "windowed")
     r_ids, r_cand = ref.query(queries, **kw)
@@ -265,7 +267,8 @@ def cuda_device():
 def test_ensemble_on_the_card(cuda_device, metric):
     """The ensemble serves through K3 on the card (calibrated and
     guarded), agrees with its plain scorer, the grouped engine (K1) and
-    the gather engine."""
+    the gather engine; after a starved calibration the guard takes the
+    static bound and the serve answers exactly as the calibrated one."""
     corpus, queries, _, _, hashings = _ensemble(metric, seed=6, n=6000,
                                                 nq=300)
     idx = MultiTableIndexer(hashings, corpus, device=cuda_device,
@@ -278,6 +281,14 @@ def test_ensemble_on_the_card(cuda_device, metric):
     p_ids, p_cand = idx.query(queries, plain=True, **kw)
     np.testing.assert_array_equal(cand, p_cand)
     assert (ids == p_ids).mean() >= 0.999
+    g_starved = idx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
+    gp, gv = idx._flat_probes(*idx._probes(
+        torch.as_tensor(queries, device=cuda_device), 3, probe_mode="flip"))
+    override, needed = idx.windowed_group_bound(idx._serving_layout(), gp, gv)
+    assert override is None and needed > g_starved
+    s_ids, s_cand = idx.query(queries, **kw)
+    np.testing.assert_array_equal(s_cand, cand)
+    np.testing.assert_array_equal(s_ids, ids)
     idx.engine = "grouped"
     g_ids, g_cand = idx.query(queries, **kw)
     np.testing.assert_array_equal(cand, g_cand)
