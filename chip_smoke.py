@@ -5,15 +5,21 @@
     python3 chip_smoke.py --profile  # also profile 3 ensemble serve passes
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
-power limit line), the kernel build, K1-K4 against their plain PyTorch
-versions on the card, then two paths on the bench workload (1,183,514 x
-100 from ``bench.glove100_workload`` with seed 0, 10,000 queries,
-recall@10 against the committed exact ground truth):
+power limit line), the kernel build (one ``nvcc`` per source, in
+parallel), K1-K4 and K5/K6 against their plain PyTorch versions on
+synthetic operands (f32, bf16 and int8 corpora), K7 (the int8 block
+probe) on the probe's own operands, then two paths on the bench workload
+(1,183,514 x 100 from ``bench.glove100_workload`` with seed 0, 10,000
+queries, recall@10 against the committed exact ground truth):
 
 * the single table (the committed trained params, 16 flip probes, cap
   512): index build, the serve through ``Indexer.query`` on the grouped
-  engine (K1 at k=10, K2 at k=20; QPS), kernel times, engine parity, and
-  the same serve on the windowed engine (K3 at k=10, K4 at k=20);
+  engine (K1 at k=10, K2 at k=20; QPS), kernel times, engine parity, the
+  same serve on the windowed engine (K3 at k=10, K4 at k=20), on the
+  fixed-cap engine (K5; QPS, with K5/K6 times on the serve's own
+  events), and on the per-row int8 layout (grouped K1, fixed-cap K5,
+  windowed K3, then one global-scale grouped serve; QPS and the int8
+  times of K1-K4);
 * the L=8 ensemble (the committed 8-table params, 4 flip probes per
   table): ``MultiTableIndexer`` build, ``calibrate`` and the serve on the
   windowed engine (K3; recall, summed and exact candidates, QPS, all
@@ -25,7 +31,9 @@ recall@10 against the committed exact ground truth):
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
-k=20).  Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+k=20; K5: the fixed-cap serve; K6: the serve's events scored by row
+offset, since the JAX package has no caller of it; K7: the int8 probe).
+Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, so the exit code is
 non-zero and no result line is printed.  Needs no network and imports
 nothing of JAX.
@@ -65,12 +73,25 @@ MT_RECALL_RANGE = (0.9911, 0.9931)
 MT_N_CAND_RANGE = (9535.0, 9545.0)
 MT_QUERY_SIZE_RANGE = (8877.0, 8887.0)
 MT_GATHER_QUERIES = 1000
-SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
-REPLACES = {  # the TPU kernel each CUDA kernel replaces
-    "grouped_scores_topk": "nlsh_tpu/ops/pallas/query_kernel.py:879",
-    "grouped_scores": "nlsh_tpu/ops/pallas/query_kernel.py:766",
-    "windowed_scores_topk": "nlsh_tpu/ops/pallas/query_kernel.py:1372",
-    "windowed_scores": "nlsh_tpu/ops/pallas/query_kernel.py:1453",
+# the single table on the per-row int8 layout, grouped engine: the port's
+# plain serve on the CPU gives 0.72406 (tests/test_torch_full.py)
+INT8_RECALL_RANGE = (0.7231, 0.7251)
+GROUPED_SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
+BUCKET_SRC = "nlsh_tpu_torch/csrc/bucket_scores.cu"
+REPLACES = {  # the TPU kernel each CUDA kernel replaces, and its source
+    "grouped_scores_topk": ("nlsh_tpu/ops/pallas/query_kernel.py:879",
+                            GROUPED_SRC),
+    "grouped_scores": ("nlsh_tpu/ops/pallas/query_kernel.py:766",
+                       GROUPED_SRC),
+    "windowed_scores_topk": ("nlsh_tpu/ops/pallas/query_kernel.py:1372",
+                             GROUPED_SRC),
+    "windowed_scores": ("nlsh_tpu/ops/pallas/query_kernel.py:1453",
+                        GROUPED_SRC),
+    "bucket_scores_auto": ("nlsh_tpu/ops/pallas/query_kernel.py:634",
+                           BUCKET_SRC),
+    "bucket_scores_impl": ("nlsh_tpu/ops/pallas/query_kernel.py:569",
+                           BUCKET_SRC),
+    "int8_block_scores": ("benchmarks/int8_probe.py:66", GROUPED_SRC),
 }
 
 
@@ -157,12 +178,13 @@ def phase_build() -> None:
     from nlsh_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    path = build.build()
+    paths = build.build()
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
-             if "registers" in ln or "smem" in ln]
+             if "registers" in ln or "smem" in ln or ln.startswith("==")]
     emit("build", build_s=time.perf_counter() - t0, nvcc_s=build.build_seconds,
-         library=os.path.relpath(path, ROOT), ptxas=ptxas)
+         libraries=[os.path.relpath(p, ROOT) for p in paths.values()],
+         ptxas=ptxas)
 
 
 def _unit_rows(rng, shape) -> np.ndarray:
@@ -321,6 +343,107 @@ def _windowed_kernel_cases(rng, data, qvecs, t, worst) -> int:
     return cases
 
 
+def _masked_err(name: str, got, want, exact: bool) -> float:
+    """Masked per-event scores against their plain version: the same
+    -inf pattern, then bitwise (``exact``) or within SCORE_TOL."""
+    import torch
+
+    fin = torch.isfinite(want)
+    check(bool((torch.isfinite(got) == fin).all()), f"{name} -inf pattern")
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    check(err == 0.0 if exact else err <= SCORE_TOL,
+          f"{name} error {err} (exact: {exact})")
+    return err
+
+
+def phase_fixed_kernels() -> dict:
+    """K5 and K6 vs their plain versions on synthetic events (cap 512,
+    d_pad 128, 256 queries x 16 probes over 64 blocks) for f32, bf16
+    and int8 corpora: counts of 0 (invalid probes), of cap and between,
+    every query probing the layout's last block, K6 at starts that are
+    multiples of 8 but not of cap, and K6 = K5 bitwise at block-exact
+    starts.  The int8 cases dot small dyadic queries, so every sum is
+    exact and they compare bitwise."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(2)
+    cap, d, n_blocks, nq, n_probes = 512, 128, 64, 256, 16
+    worst = {"bucket_scores_auto": 0.0, "bucket_scores_impl": 0.0}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        data = _unit_rows(rng, (n_blocks * cap, d))
+        q = _unit_rows(rng, (nq, d))
+        exact = dtype is torch.int8
+        if exact:
+            scale = np.abs(data).max(axis=1, keepdims=True) / 127.0
+            data = np.clip(np.round(data / scale), -127, 127).astype(np.int8)
+            q = (rng.integers(-16, 17, (nq, d)) / 64.0).astype(np.float32)
+        bidx = rng.integers(0, n_blocks, (nq, n_probes)).astype(np.int32)
+        bidx[:, 0] = n_blocks - 1                    # the layout's tail
+        cnt = rng.integers(1, cap, (nq, n_probes)).astype(np.int32)
+        cnt[::5] = cap                               # full buckets
+        cnt[1::7, 3:] = 0                            # invalid probes
+        dd = torch.from_numpy(data).to(dev).to(dtype)
+        tq, tb, tc = (torch.from_numpy(a).to(dev) for a in (q, bidx, cnt))
+        k5 = qk.bucket_scores_auto(dd, tq, tb, tc, cap)
+        worst["bucket_scores_auto"] = max(worst["bucket_scores_auto"], _masked_err(
+            "K5", k5, qk.bucket_scores_auto_plain(dd, tq, tb, tc, cap), exact))
+        check(torch.equal(qk.bucket_scores_impl(dd, tq, tb * cap, tc, cap), k5),
+              "K6 differs from K5 at block-exact starts")
+        starts = torch.clamp(tb * cap + 8 * (tb % 7 + 1), max=dd.shape[0] - cap)
+        worst["bucket_scores_impl"] = max(worst["bucket_scores_impl"], _masked_err(
+            "K6", qk.bucket_scores_impl(dd, tq, starts, tc, cap),
+            qk.bucket_scores_impl_plain(dd, tq, starts, tc, cap), exact))
+    torch.cuda.synchronize()
+    emit("fixed_kernels", cases=3, max_abs_err=worst, score_tol=SCORE_TOL,
+         int8="bitwise")
+    return worst
+
+
+def phase_int8_probe():
+    """K7 at ``benchmarks/int8_probe.py``'s own operands (64 int8 blocks of
+    (128, 128), 8 integer queries in [-16, 16], a permuted block order,
+    seed 0): bitwise equal to its plain version (every partial sum is an
+    exact f32 integer), and the probe's top-10 agreement of int8 against
+    f32 scores on 256 unit queries (host math, as the probe does it).
+    Returns the launch count of the probe's run and the times."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    br, lane, nq, n_blocks = 128, 128, 8, 64
+    rng = np.random.default_rng(0)
+    corpus = rng.normal(size=(n_blocks * br, lane)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    scale = np.abs(corpus).max() / 127.0
+    corpus_q = np.clip(np.round(corpus / scale), -127, 127).astype(np.int8)
+    queries = rng.integers(-16, 17, size=(nq, lane)).astype(np.float32)
+    block_ids = rng.permutation(n_blocks).astype(np.int32)
+    t = [torch.from_numpy(a).to(DEVICE)
+         for a in (corpus_q, queries, block_ids)]
+    reset_launches()
+    out = qk.int8_block_scores(*t, br)
+    launches = read_launches("int8_block_scores")
+    ref = qk.int8_block_scores_plain(*t, br)
+    check(out.shape == (n_blocks, nq, br) and torch.equal(out, ref),
+          "K7 differs from its plain version")
+    fq = rng.normal(size=(256, lane)).astype(np.float32)
+    fq /= np.linalg.norm(fq, axis=1, keepdims=True)
+    exact = fq @ corpus.T
+    quant = (fq @ corpus_q.astype(np.float32).T) * scale
+    agree = float(np.mean([
+        len(set(np.argsort(-exact[i])[:10]) & set(np.argsort(-quant[i])[:10]))
+        / 10 for i in range(fq.shape[0])]))
+    times = {"max_abs_err": float((out - ref).abs().max()),
+             "ms": cuda_ms(lambda: qk.int8_block_scores(*t, br), 20),
+             "plain_ms": cuda_ms(lambda: qk.int8_block_scores_plain(*t, br), 20)}
+    emit("int8_probe", n_blocks=n_blocks, block_rows=br, nq=nq, bitwise=True,
+         top10_agreement_int8_vs_f32=agree, launches=launches, **times)
+    return launches, times
+
+
 def load_hashing():
     from nlsh_tpu_torch.models import get_encoder, get_hashing
     from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
@@ -392,17 +515,55 @@ def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
     return ids, n_cand, launches
 
 
-def phase_kernel_times(idx, queries: np.ndarray) -> dict:
-    """K1/K2 and their plain versions at the main path's own shapes (the
-    grouped prep of all queries): CUDA-event times and max score error."""
+def _probes(idx, queries: np.ndarray):
+    """The single table's queries on the card and their flip probes."""
+    import torch
+
+    q = torch.as_tensor(queries, device=idx.device)
+    with torch.no_grad():
+        pid, pv = idx.hashing.hash(q, n_probes=HASH_TIMES, probe_mode="flip")
+    return q, pid, pv
+
+
+def _row_scale(lay):
+    """The per-row int8 scales of a layout, or None."""
+    return lay.scale if lay.scale is not None and lay.scale.ndim == 1 else None
+
+
+def _topk_check(name: str, got, want) -> float:
+    """A fused kernel's (scores, lanes) against its plain version's: the
+    same -inf pattern, scores within SCORE_TOL, lanes equal on >= 0.999
+    of the finite slots (near-ties may swap).  Returns the max error."""
+    import torch
+
+    fin = torch.isfinite(want[0])
+    check(bool((torch.isfinite(got[0]) == fin).all()), f"{name} -inf pattern")
+    check(bool((got[1] == want[1])[fin].float().mean() >= 0.999),
+          f"{name} lanes vs plain at the main path's shapes")
+    err = float((got[0] - want[0])[fin].abs().max())
+    check(err <= SCORE_TOL, f"{name} error {err} at the main path's shapes")
+    return err
+
+
+def _panel_err(name: str, got, want, lay, blk) -> float:
+    """Max |kernel - plain| of raw panels, in dequantised units on a
+    per-row int8 layout (the raw dots there are ~1/scale times larger)."""
+    scale = _row_scale(lay)
+    if scale is not None:
+        w = scale.view(-1, lay.br)[blk.long()][:, None, :]
+        got, want = got * w, want * w
+    err = float((got - want).abs().max())
+    check(err <= SCORE_TOL, f"{name} error {err} at the main path's shapes")
+    return err
+
+
+def _grouped_times(lay, q, pid, pv) -> dict:
+    """K1/K2 and their plain versions at the grouped prep of all the
+    queries on ``lay``: CUDA-event times and max score error."""
     import torch
 
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
-    lay = idx.layout
-    q = torch.as_tensor(queries, device=idx.device)
-    with torch.no_grad():
-        pid, pv = idx.hashing.hash(q, n_probes=HASH_TIMES, probe_mode="flip")
     max_blocks = lay.cap // lay.br
     g_total = qk._round_up(qk.grouped_static_bound(
         pid.numel(), max_blocks, lay.total_blocks, 32), qk._GROUP_EB)
@@ -410,32 +571,80 @@ def phase_kernel_times(idx, queries: np.ndarray) -> dict:
         lay.starts, lay.counts, pid, pv, qk.extend_queries(lay, q), lay.cap,
         g_total=g_total, max_blocks=max_blocks, group_q=32, block_rows=lay.br)
     args = (lay.data, grp_qvecs, grp_block)
+    kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
     out = {}
-    k1 = qk.grouped_scores_topk(*args, grp_cnt, K, block_rows=lay.br)
-    p1 = qk.grouped_scores_topk_plain(*args, grp_cnt, K, block_rows=lay.br)
-    fin = torch.isfinite(p1[0])
-    check(bool((torch.isfinite(k1[0]) == fin).all()), "K1 -inf pattern")
+    err = _topk_check("K1", qk.grouped_scores_topk(*args, grp_cnt, K, **kw),
+                      qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw))
     out["grouped_scores_topk"] = {
-        "max_abs_err": float((k1[0] - p1[0])[fin].abs().max()),
+        "max_abs_err": err,
         "ms": cuda_ms(lambda: qk.grouped_scores_topk(
-            *args, grp_cnt, K, block_rows=lay.br), 20),
+            *args, grp_cnt, K, **kw), 20),
         "plain_ms": cuda_ms(lambda: qk.grouped_scores_topk_plain(
-            *args, grp_cnt, K, block_rows=lay.br), 3),
+            *args, grp_cnt, K, **kw), 3),
     }
-    k2 = qk.grouped_scores(*args, block_rows=lay.br)
-    p2 = qk.grouped_scores_plain(*args, block_rows=lay.br)
+    err = _panel_err("K2", qk.grouped_scores(*args, block_rows=lay.br),
+                     qk.grouped_scores_plain(*args, block_rows=lay.br), lay,
+                     grp_block)
     out["grouped_scores"] = {
-        "max_abs_err": float((k2 - p2).abs().max()),
+        "max_abs_err": err,
         "ms": cuda_ms(lambda: qk.grouped_scores(*args, block_rows=lay.br), 20),
         "plain_ms": cuda_ms(lambda: qk.grouped_scores_plain(
             *args, block_rows=lay.br), 3),
     }
-    for name, v in out.items():
-        check(v["max_abs_err"] <= SCORE_TOL,
-              f"{name} error {v['max_abs_err']} at the main path's shapes")
-    emit("kernel_times", g_total=g_total, group_q=32,
-         block_rows=lay.br, d_pad=lay.d_pad,
-         live_groups=int((grp_cnt.max(dim=1).values > 0).sum()), **out)
+    torch.cuda.synchronize()
+    return {"g_total": g_total, "group_q": 32, "block_rows": lay.br,
+            "d_pad": lay.d_pad,
+            "live_groups": int((grp_cnt.max(dim=1).values > 0).sum()),
+            "kernels": out}
+
+
+def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
+    """K3/K4 and their plain versions at the windowed prep of the probes
+    ``(pid, pv)`` on ``lay`` with ``g_total`` groups: CUDA-event times
+    and max score error."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    grp_window, grp_qvecs, grp_lo, grp_hi, *_ = qk._windowed_prep(
+        lay.starts, lay.counts, pid, pv, qk.extend_queries(lay, q), lay.cap,
+        g_total=g_total, max_sub=lay.cap // lay.br + 1, group_q=qk.GROUP_W,
+        block_rows=lay.br)
+    args = (lay.data, grp_qvecs, grp_window)
+    topk = (grp_lo, grp_hi, K)
+    kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
+    out = {}
+    err = _topk_check("K3", qk.windowed_scores_topk(*args, *topk, **kw),
+                      qk.windowed_scores_topk_plain(*args, *topk, **kw))
+    out["windowed_scores_topk"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: qk.windowed_scores_topk(*args, *topk, **kw), 20),
+        "plain_ms": cuda_ms(lambda: qk.windowed_scores_topk_plain(
+            *args, *topk, **kw), 3),
+    }
+    err = _panel_err("K4", qk.windowed_scores(*args, block_rows=lay.br),
+                     qk.windowed_scores_plain(*args, block_rows=lay.br), lay,
+                     grp_window)
+    out["windowed_scores"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br),
+                      panel_reps),
+        "plain_ms": cuda_ms(lambda: qk.windowed_scores_plain(
+            *args, block_rows=lay.br), 3),
+    }
+    torch.cuda.synchronize()
+    live = grp_hi > grp_lo
+    return {"g_total": g_total, "group_q": qk.GROUP_W, "block_rows": lay.br,
+            "d_pad": lay.d_pad, "live_groups": int(live.any(dim=1).sum()),
+            "live_slots": int(live.sum()), "kernels": out}
+
+
+def phase_kernel_times(idx, queries: np.ndarray) -> dict:
+    """K1/K2 and their plain versions at the main path's own shapes (the
+    grouped prep of all queries): CUDA-event times and max score error."""
+    res = _grouped_times(idx.layout, *_probes(idx, queries))
+    out = res.pop("kernels")
+    emit("kernel_times", **res, **out)
     return out
 
 
@@ -499,6 +708,200 @@ def phase_windowed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
          layout_rows=layout.n_rows, align=layout.align, launches=launches)
     idx.engine = "grouped"
     return launches
+
+
+def _timed_passes(serve, n: int) -> dict:
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    return {"pass_s": times, "median_s": med}
+
+
+def phase_fixed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
+                grouped_cand) -> dict:
+    """The single table on the fixed-cap engine (K5), on the cap-aligned
+    f32 layout the grouped engine built: recall and candidates in the
+    f32 windows, candidates per query and ids against the grouped
+    engine's run, QPS.  Returns the launch counts of the run."""
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    layout = idx.layout
+    idx.engine = "fixed"
+    check(idx.layout is layout and layout.align == layout.cap,
+          "the fixed-cap engine serves the grouped engine's layout")
+
+    def serve():
+        return idx.query(queries, k=K, hash_times=HASH_TIMES,
+                         probe_mode="flip")
+
+    reset_launches()
+    ids, n_cand = serve()
+    launches = read_launches("bucket_scores_auto")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
+          f"fixed-cap recall@10 {recall} outside {RECALL_RANGE}")
+    check(N_CAND_RANGE[0] <= mean_cand <= N_CAND_RANGE[1],
+          f"fixed-cap mean n_candidates {mean_cand} outside {N_CAND_RANGE}")
+    check(bool((n_cand == grouped_cand).all()),
+          "fixed-cap n_candidates differ from the grouped engine's")
+    agree = id_agreement(grouped_ids, ids)
+    check(agree >= 0.999, f"fixed-cap vs grouped agreement {agree} < 0.999")
+    timed = _timed_passes(serve, 5)
+    emit("fixed", n_queries=int(queries.shape[0]), k=K, hash_times=HASH_TIMES,
+         recall_at_10=recall, mean_n_candidates=mean_cand,
+         fixed_vs_grouped=agree, layout_rows=layout.n_rows, cap=layout.cap,
+         launches=launches, **timed,
+         qps=queries.shape[0] / timed["median_s"])
+    idx.engine = "grouped"
+    return launches
+
+
+def _fixed_times(lay, q, pid, pv):
+    """K5 and K6 and their plain versions on the fixed-cap events of the
+    probes ``(pid, pv)`` on the cap-aligned ``lay``: K6 runs first, on the
+    events by row offset (starts = block_idx * cap), and must equal K5
+    bitwise; scores are compared in dequantised units on a per-row int8
+    layout.  Returns K6's launch count, the times and the live rows."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    qe = qk.extend_queries(lay, q)
+    safe, counts = qk._probe_counts(lay.counts, pid, pv, lay.cap)
+    counts = counts.to(torch.int32)
+    starts = torch.clamp(lay.starts[safe], max=lay.n_rows - lay.cap)
+    starts = starts.to(torch.int32)
+    block_idx = starts // lay.cap
+    five = (lay.data, qe, block_idx, counts, lay.cap)
+    six = (lay.data, qe, starts, counts, lay.cap)
+    reset_launches()
+    k6 = qk.bucket_scores_impl(*six)
+    launches = read_launches("bucket_scores_impl")
+    k5 = qk.bucket_scores_auto(*five)
+    check(bool(torch.equal(k5, k6)), "K6 differs from K5 on the serve's events")
+    del k6
+    p5 = qk.bucket_scores_auto_plain(*five)
+    scale = _row_scale(lay)
+    if scale is not None:
+        w = scale.view(-1, lay.cap)[block_idx.long()]
+        k5, p5 = k5 * w, p5 * w
+    err = _masked_err("K5", k5, p5, False)
+    del k5, p5
+    out = {
+        "bucket_scores_auto": {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: qk.bucket_scores_auto(*five), 20),
+            "plain_ms": cuda_ms(lambda: qk.bucket_scores_auto_plain(*five), 3)},
+        "bucket_scores_impl": {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: qk.bucket_scores_impl(*six), 20),
+            "plain_ms": cuda_ms(lambda: qk.bucket_scores_impl_plain(*six), 3)},
+    }
+    return launches, out, int(counts.sum())
+
+
+def phase_fixed_kernel_times(idx, queries: np.ndarray):
+    """K5 and K6 and their plain versions on the fixed-cap serve's own
+    events (the probes of all queries on the cap-aligned f32 layout).
+    K6 has no caller in the JAX package: its path here is these events
+    scored by row offset.  Returns the times and K6's launch count."""
+    lay = idx.layout
+    q, pid, pv = _probes(idx, queries)
+    launches, out, live_rows = _fixed_times(lay, q, pid, pv)
+    gbs = {n: live_rows * lay.d_pad * lay.data.element_size() / v["ms"] / 1e6
+           for n, v in out.items()}
+    emit("fixed_kernel_times", n_events=pid.numel(), cap=lay.cap,
+         d_pad=lay.d_pad, live_rows=live_rows, live_row_gb_per_s=gbs,
+         k6_path="no caller in the JAX package; the serve's events by row "
+                 "offset, bitwise equal to K5",
+         k6_launches=launches, **out)
+    return out, launches
+
+
+def phase_int8(idx, queries: np.ndarray, gt: np.ndarray, f32_cand):
+    """The single table on the per-row int8 layout (the bench's int8 row):
+    the grouped serve (K1 on int8 rows with per-row scales; recall in
+    INT8_RECALL_RANGE, candidates equal to the f32 serve's per query,
+    QPS), the fixed-cap (K5) and windowed (K3, dense layout) serves of
+    the same table (ids >= 0.999 against the grouped one, candidates
+    equal), K1-K4 on int8 against their plain versions with times, and
+    one global-scale grouped serve; K5/K6 on int8 at the fixed-cap
+    serve's events.  Returns the launch counts and the int8 kernel
+    times."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    def serve():
+        return idx.query(queries, k=K, hash_times=HASH_TIMES,
+                         probe_mode="flip")
+
+    idx.engine, idx.serving_dtype, idx.int8_scale = \
+        "grouped", torch.int8, "per_row"
+    t0 = time.perf_counter()
+    layout = idx.layout
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(layout.data.dtype == torch.int8 and layout.scale.ndim == 1,
+          "per-row int8 layout")
+    reset_launches()
+    ids, n_cand = serve()
+    launches = {"grouped": read_launches("grouped_scores_topk")}
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1],
+          f"int8 recall@10 {recall} outside {INT8_RECALL_RANGE}")
+    check(bool((n_cand == f32_cand).all()),
+          "int8 n_candidates differ from the f32 serve's")
+    res = {"recall_at_10": recall, "layout_rows": layout.n_rows,
+           "layout_gib": layout.data.numel() / 2 ** 30, "build_s": build_s}
+    timed = _timed_passes(serve, 5)
+    res["grouped"] = {**timed, "qps": queries.shape[0] / timed["median_s"]}
+    q, pid, pv = _probes(idx, queries)
+    k12 = _grouped_times(layout, q, pid, pv)
+    times = k12.pop("kernels")
+    times.update(_fixed_times(layout, q, pid, pv)[1])
+
+    for engine, kernel in (("fixed", "bucket_scores_auto"),
+                           ("windowed", "windowed_scores_topk")):
+        idx.engine = engine
+        lay = idx.layout  # the windowed engine's dense layout: built here
+        reset_launches()
+        e_ids, e_cand = serve()
+        launches[engine] = read_launches(kernel)
+        agree = id_agreement(ids, e_ids)
+        check(agree >= 0.999, f"int8 {engine} vs grouped {agree} < 0.999")
+        check(bool((e_cand == n_cand).all()),
+              f"int8 {engine} n_candidates differ from the grouped serve's")
+        timed = _timed_passes(serve, 3)
+        res[engine] = {"vs_grouped": agree, "layout_rows": lay.n_rows,
+                       **timed, "qps": queries.shape[0] / timed["median_s"]}
+    g_total = qk._round_up(qk.windowed_static_bound(
+        pid.numel(), lay.cap // lay.br + 1, lay.n_rows // lay.br, qk.GROUP_W),
+        qk._GROUP_EB)
+    k34 = _windowed_times(lay, q, pid, pv, g_total, panel_reps=5)
+    times.update(k34.pop("kernels"))
+
+    idx.engine, idx.int8_scale = "grouped", "global"
+    g_ids, g_cand = serve()
+    check(bool((g_cand == n_cand).all()),
+          "global-scale int8 n_candidates differ")
+    check(idx.layout.scale.ndim == 0, "global-scale int8 layout")
+    res["global"] = {
+        "recall_at_10": float(calculate_recall(gt[:, :K], g_ids, np.mean)),
+        "vs_per_row": id_agreement(ids, g_ids)}
+    idx.serving_dtype, idx.int8_scale = torch.float32, "per_row"
+    emit("int8", n_queries=int(queries.shape[0]), k=K, hash_times=HASH_TIMES,
+         scale_mode="per_row", **res, launches=launches,
+         grouped_table=k12, windowed_table=k34, kernel_times=times)
+    return launches, times
 
 
 def load_ensemble():
@@ -613,50 +1016,12 @@ def phase_ensemble_kernel_times(midx, queries: np.ndarray) -> dict:
     score error."""
     import torch
 
-    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
-
-    lay = midx._serving_layout()
     gp, gv = _flat_probes(midx, queries)
-    g_total = midx._g_cal
-    q = torch.as_tensor(queries, device=midx.device)
-    grp_window, grp_qvecs, grp_lo, grp_hi, *_ = qk._windowed_prep(
-        lay.starts, lay.counts, gp, gv, qk.extend_queries(lay, q), lay.cap,
-        g_total=g_total, max_sub=lay.cap // lay.br + 1, group_q=qk.GROUP_W,
-        block_rows=lay.br)
-    args = (lay.data, grp_qvecs, grp_window)
-    topk = (grp_lo, grp_hi, K)
-    out = {}
-    k3 = qk.windowed_scores_topk(*args, *topk, block_rows=lay.br)
-    p3 = qk.windowed_scores_topk_plain(*args, *topk, block_rows=lay.br)
-    fin = torch.isfinite(p3[0])
-    check(bool((torch.isfinite(k3[0]) == fin).all()), "K3 -inf pattern")
-    check(bool((k3[1] == p3[1])[fin].float().mean() >= 0.999),
-          "K3 lanes vs plain at the ensemble's shapes")
-    out["windowed_scores_topk"] = {
-        "max_abs_err": float((k3[0] - p3[0])[fin].abs().max()),
-        "ms": cuda_ms(lambda: qk.windowed_scores_topk(
-            *args, *topk, block_rows=lay.br), 20),
-        "plain_ms": cuda_ms(lambda: qk.windowed_scores_topk_plain(
-            *args, *topk, block_rows=lay.br), 3),
-    }
-    del k3, p3
-    k4 = qk.windowed_scores(*args, block_rows=lay.br)
-    p4 = qk.windowed_scores_plain(*args, block_rows=lay.br)
-    out["windowed_scores"] = {
-        "max_abs_err": float((k4 - p4).abs().max()),
-        "ms": cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br), 5),
-        "plain_ms": cuda_ms(lambda: qk.windowed_scores_plain(
-            *args, block_rows=lay.br), 3),
-    }
-    del k4, p4
-    for name, v in out.items():
-        check(v["max_abs_err"] <= SCORE_TOL,
-              f"{name} error {v['max_abs_err']} at the ensemble's shapes")
-    live = grp_hi > grp_lo
-    emit("ensemble_kernel_times", g_total=g_total, group_q=qk.GROUP_W,
-         block_rows=lay.br, d_pad=lay.d_pad,
-         live_groups=int(live.any(dim=1).sum()),
-         live_slots=int(live.sum()), **out)
+    res = _windowed_times(midx._serving_layout(),
+                          torch.as_tensor(queries, device=midx.device), gp,
+                          gv, midx._g_cal, panel_reps=5)
+    out = res.pop("kernels")
+    emit("ensemble_kernel_times", **res, **out)
     return out
 
 
@@ -771,15 +1136,25 @@ def main() -> int:
     info = phase_device()
     phase_build()
     phase_kernels()
+    phase_fixed_kernels()
+    launches, times = {}, {}
+    k7_launches, times["int8_block_scores"] = phase_int8_probe()
+    launches.update(k7_launches)
 
     corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
     with np.load(GT) as z:
         gt = z["gt"]
     idx = phase_index(corpus)
-    ids, n_cand, launches = phase_serve(idx, queries, gt)
-    times = phase_kernel_times(idx, queries)
+    ids, n_cand, serve_launches = phase_serve(idx, queries, gt)
+    launches.update(serve_launches)
+    times.update(phase_kernel_times(idx, queries))
     phase_parity(corpus, queries, idx, ids)
     launches.update(phase_windowed(idx, queries, gt, ids, n_cand))
+    launches.update(phase_fixed(idx, queries, gt, ids, n_cand))
+    fixed_times, k6_launches = phase_fixed_kernel_times(idx, queries)
+    times.update(fixed_times)
+    launches.update(k6_launches)
+    phase_int8(idx, queries, gt, n_cand)
     del idx
 
     midx = phase_ensemble_index(corpus)
@@ -792,10 +1167,9 @@ def main() -> int:
     phase_ensemble_guard(midx, queries, mt_ids, mt_cand)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SRC,
-         "replaces": REPLACES[name], "launches": launches[name],
-         **times[name]}
-        for name in REPLACES
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], **times[name]}
+        for name, (replaces, src) in REPLACES.items()
     ]}), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"ok": True, "device": {

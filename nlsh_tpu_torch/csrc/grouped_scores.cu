@@ -18,6 +18,15 @@
 //       multiple of br, so a window index IS a block index and K4 is K2's
 //       kernel launched on the window table (entry nlsh_grouped_scores;
 //       the Python wrapper windowed_scores keeps its own count).
+//   K7  the int8 probe of benchmarks/int8_probe.py (its inline kernel):
+//       q . upcast(int8 block)^T over a scrambled block order, i.e. K2's
+//       kernel on an int8 layout with the one query panel repeated for
+//       every block (wrapper int8_block_scores, its own count).
+//
+// Corpus rows are f32, bf16 or int8 (dtype 0, 1, 2), widened to f32 by
+// the loads of load16.cuh before any arithmetic, as the reference
+// upcasts its blocks; an int8 layout's per-row scale rides the `scale`
+// pointer of K1/K3.
 //
 // What bounds it: a group multiplies its G <= 32 f32 query rows by one
 // br-row corpus block, 2 * G = 64 flop per corpus element, i.e. about 16
@@ -50,7 +59,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "load16.cuh"
+
 namespace {
+
+using nlsh::Load16;
 
 constexpr int kThreads = 512;             // 16 warps
 constexpr int kWarps = kThreads / 32;
@@ -61,37 +74,6 @@ constexpr int kBStride = kTileK + 4;      // padded tile row (floats): float4
                                           // reads of 8 rows hit 8 bank groups
 constexpr int kQPerThread = 4;            // 8 query slabs x 4 = 32 rows
 constexpr int kRowHalf = kTileRows / 2;   // a thread's rows: r and r + 64
-
-// 16 bytes of the corpus, widened to floats
-template <typename T>
-struct Load16;
-
-template <>
-struct Load16<float> {
-  static constexpr int kN = 4;
-  __device__ static void run(const float* src, float* dst) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-};
-
-template <>
-struct Load16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void run(const __nv_bfloat16* src, float* dst) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-};
 
 // Copy rows [0, kTileRows) x features [k0, k0 + kTileK) of `tile` (row
 // stride d_pad) into bs[r * kBStride + c] as f32.
@@ -308,37 +290,43 @@ int launch(const void* qvecs, const void* data, const void* grp_block,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1 (grp_lo null) or K3 (grp_lo given), by corpus dtype
-template <bool kWindowed>
-int launch_topk(int dtype, const void* qvecs, const void* data,
-                const void* grp_block, const void* grp_hi, const void* grp_lo,
-                const void* norms, const void* scale, void* out_scores,
-                void* out_lanes, int g_total, int G, int d_pad, int br,
-                int n_blocks, int kk, void* stream) {
-  if (dtype == 0) {
-    return launch<float, true, kWindowed>(
-        qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
-        out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+// one launch<> per corpus dtype
+template <bool kTopK, bool kWindowed>
+int launch_dtype(int dtype, const void* qvecs, const void* data,
+                 const void* grp_block, const void* grp_hi,
+                 const void* grp_lo, const void* norms, const void* scale,
+                 void* out_scores, void* out_lanes, int g_total, int G,
+                 int d_pad, int br, int n_blocks, int kk, void* stream) {
+  switch (dtype) {
+    case 0:
+      return launch<float, kTopK, kWindowed>(
+          qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
+          out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+    case 1:
+      return launch<__nv_bfloat16, kTopK, kWindowed>(
+          qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
+          out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+    case 2:
+      return launch<int8_t, kTopK, kWindowed>(
+          qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
+          out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16, true, kWindowed>(
-        qvecs, data, grp_block, grp_hi, grp_lo, norms, scale, out_scores,
-        out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 corpus, 1 = bfloat16 corpus.  Returns cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8 corpus.  Returns cudaError_t.
 extern "C" int nlsh_grouped_scores_topk(
     int dtype, const void* qvecs, const void* data, const void* grp_block,
     const void* grp_cnt, const void* norms, const void* scale,
     void* out_scores, void* out_lanes, int g_total, int G, int d_pad, int br,
     int n_blocks, int kk, void* stream) {
-  return launch_topk<false>(dtype, qvecs, data, grp_block, grp_cnt, nullptr,
-                            norms, scale, out_scores, out_lanes, g_total, G,
-                            d_pad, br, n_blocks, kk, stream);
+  return launch_dtype<true, false>(dtype, qvecs, data, grp_block, grp_cnt,
+                                   nullptr, norms, scale, out_scores,
+                                   out_lanes, g_total, G, d_pad, br,
+                                   n_blocks, kk, stream);
 }
 
 // K3: grp_window (g,) window ids, grp_lo / grp_hi (g, G) lane bounds.
@@ -347,26 +335,19 @@ extern "C" int nlsh_windowed_scores_topk(
     const void* grp_lo, const void* grp_hi, const void* norms,
     const void* scale, void* out_scores, void* out_lanes, int g_total, int G,
     int d_pad, int br, int n_windows, int kk, void* stream) {
-  return launch_topk<true>(dtype, qvecs, data, grp_window, grp_hi, grp_lo,
-                           norms, scale, out_scores, out_lanes, g_total, G,
-                           d_pad, br, n_windows, kk, stream);
+  return launch_dtype<true, true>(dtype, qvecs, data, grp_window, grp_hi,
+                                  grp_lo, norms, scale, out_scores, out_lanes,
+                                  g_total, G, d_pad, br, n_windows, kk,
+                                  stream);
 }
 
-// K2, and K4 on a window table.
+// K2, and K4 on a window table, and K7 on an int8 block table.
 extern "C" int nlsh_grouped_scores(int dtype, const void* qvecs,
                                    const void* data, const void* grp_block,
                                    void* out, int g_total, int G, int d_pad,
                                    int br, int n_blocks, void* stream) {
-  if (dtype == 0) {
-    return launch<float, false, false>(qvecs, data, grp_block, nullptr,
-                                       nullptr, nullptr, nullptr, out,
-                                       nullptr, g_total, G, d_pad, br,
-                                       n_blocks, 0, stream);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16, false, false>(
-        qvecs, data, grp_block, nullptr, nullptr, nullptr, nullptr, out,
-        nullptr, g_total, G, d_pad, br, n_blocks, 0, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<false, false>(dtype, qvecs, data, grp_block, nullptr,
+                                    nullptr, nullptr, nullptr, out, nullptr,
+                                    g_total, G, d_pad, br, n_blocks, 0,
+                                    stream);
 }

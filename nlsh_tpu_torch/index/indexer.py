@@ -4,9 +4,12 @@ Port of :mod:`nlsh_tpu.index.indexer` (constructor, lazy serving layout,
 ``query``/``query_async``/``fetch``).  Engines: ``"grouped"`` (the
 grouped CUDA kernels K1/K2; ``"auto"`` picks it on every device),
 ``"windowed"`` (the dense-window kernels K3/K4, on an 8-row-aligned
-layout) and ``"gather"`` (gather + exact rerank, the JAX package's
-``"xla"``).  ``add``/``remove``/``compact``, ``save``/``load`` and the
-fixed-cap engine are still to be ported (ROADMAP.md Queue 1, item 5).
+layout), ``"fixed"`` (the fixed-cap kernel K5, the JAX package's
+``"pallas"``, on the cap-aligned layout the grouped engine uses) and
+``"gather"`` (gather + exact rerank, the JAX package's ``"xla"``).
+Serving layouts are f32, bf16 or int8 (per-row or global scale).
+``add``/``remove``/``compact`` and ``save``/``load`` are still to be
+ported (ROADMAP.md Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -18,10 +21,14 @@ from torch import nn
 from nlsh_tpu_torch.index.bucket_table import build_bucket_table
 from nlsh_tpu_torch.index.query import default_query_chunk, query_bucket_table
 from nlsh_tpu_torch.index.serving import (
+    serving_query,
     serving_query_grouped,
     serving_query_windowed,
 )
-from nlsh_tpu_torch.ops.cuda.query_kernel import serving_layout
+from nlsh_tpu_torch.ops.cuda.query_kernel import (
+    _check_scale_mode,
+    serving_layout,
+)
 
 
 @torch.no_grad()
@@ -48,18 +55,22 @@ class Indexer:
       metric: rerank metric in the original space.
       probe_budget: max rows served per probed bucket (the grouped
         engine's cap); ``None`` uses the largest bucket (exact).
-      engine: ``"auto"`` (= ``"grouped"``), ``"grouped"``, ``"windowed"``
-        or ``"gather"``.
-      serving_dtype: ``torch.float32`` or ``torch.bfloat16`` layout rows.
+      engine: ``"auto"`` (= ``"grouped"``), ``"grouped"``, ``"windowed"``,
+        ``"fixed"`` or ``"gather"``.
+      serving_dtype: ``torch.float32``, ``torch.bfloat16`` or
+        ``torch.int8`` layout rows.
       block_rows: rows per grouped-engine block (default 512).
+      int8_scale: ``"per_row"`` (one scale per stored row) or
+        ``"global"`` (one for the corpus); int8 layouts only.
     """
 
-    ENGINES = ("auto", "grouped", "windowed", "gather")
+    ENGINES = ("auto", "grouped", "windowed", "fixed", "gather")
 
     def __init__(self, hashing: nn.Module, corpus, *, device,
                  metric: str = "cosine", probe_budget: int | None = None,
                  engine: str = "auto", serving_dtype=torch.float32,
-                 block_rows: int | None = None):
+                 block_rows: int | None = None, int8_scale: str = "per_row"):
+        _check_scale_mode(int8_scale)
         self.device = torch.device(device)
         self.hashing = hashing.to(self.device).eval()
         self.corpus = torch.as_tensor(corpus, dtype=torch.float32,
@@ -68,6 +79,7 @@ class Indexer:
         self.engine = engine
         self.serving_dtype = serving_dtype
         self.block_rows = block_rows
+        self.int8_scale = int8_scale
         self._layout = None
         self._layout_sig = None
         self.table = build_bucket_table(hash_corpus(self.hashing, self.corpus),
@@ -90,15 +102,17 @@ class Indexer:
     def layout(self):
         """Lazily built serving layout, rebuilt when a knob it depends on
         (bucket alignment — 8 rows for the windowed engine, else the cap —
-        dtype, probe budget, block rows) changed since the last build."""
+        dtype, probe budget, block rows, int8 scale mode) changed since
+        the last build."""
         align = 8 if self.engine == "windowed" else None
         sig = (align, self.serving_dtype, int(self.probe_budget),
-               self.block_rows)
+               self.block_rows, self.int8_scale)
         if self._layout is None or self._layout_sig != sig:
             self._layout = serving_layout(
                 self.table, self.corpus, metric=self.metric,
                 cap=self.probe_budget, dtype=self.serving_dtype,
-                align=align, block_rows=self.block_rows)
+                align=align, block_rows=self.block_rows,
+                scale_mode=self.int8_scale)
             self._layout_sig = sig
         return self._layout
 
@@ -117,9 +131,9 @@ class Indexer:
         returns ``(topk_ids, n_candidates)`` device tensors for
         :meth:`fetch`.  Sampled probes draw from ``generator`` (default:
         a fresh one seeded 0 on the index's device).  ``plain=True``
-        serves the grouped or windowed engine with the kernels' plain
-        PyTorch versions (the reference the kernels are checked
-        against)."""
+        serves the grouped, windowed or fixed-cap engine with the
+        kernels' plain PyTorch versions (the reference the kernels are
+        checked against)."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         if generator is None and probe_mode == "sample" and hash_times > 1:
@@ -128,8 +142,9 @@ class Indexer:
             queries, n_probes=hash_times, generator=generator,
             probe_mode=probe_mode)
         if self.engine != "gather":
-            serve = (serving_query_windowed if self.engine == "windowed"
-                     else serving_query_grouped)
+            serve = {"windowed": serving_query_windowed,
+                     "fixed": serving_query}.get(self.engine,
+                                                 serving_query_grouped)
             ids, _, n_cand = serve(self.layout, queries, probe_ids,
                                    probe_valid, self.table.counts, k=k,
                                    plain=plain)

@@ -1,6 +1,11 @@
-"""Grouped and windowed serving paths: prep -> scoring kernel -> top-k merge.
+"""Serving paths: prep -> scoring kernel -> top-k merge.
 
-Port of the grouped and windowed halves of :mod:`nlsh_tpu.index.serving`.
+Port of :mod:`nlsh_tpu.index.serving`'s fixed-cap, grouped and windowed
+engines.
+
+* Fixed-cap (:func:`serving_query`): every (query, probe) event scores
+  its bucket's first ``cap`` rows of a cap-aligned layout (kernel K5),
+  then one flat top-k per query over its ``P * cap`` slots.
 
 * Grouped: the (query, probe) events are sorted by bucket block, every
   block is scored against the up to G queries that probe it (kernel K1,
@@ -39,6 +44,50 @@ def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     pad = torch.zeros((n - t.shape[0],) + t.shape[1:], dtype=t.dtype,
                       device=t.device)
     return torch.cat([t, pad])
+
+
+def _n_candidates(probe_ids, probe_valid, full_counts) -> torch.Tensor:
+    """Each query's summed probed occupancy (unclamped counts), i32."""
+    safe = torch.clamp(probe_ids.long(), 0, full_counts.shape[0] - 1)
+    return torch.sum(torch.where(probe_valid, full_counts[safe], 0), dim=1,
+                     dtype=torch.int32)
+
+
+@torch.no_grad()
+def serving_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
+                  full_counts, k: int, plain: bool = False):
+    """Fixed-cap serving (the JAX package's ``"pallas"`` engine).
+
+    Returns ``(topk_ids (nq, k) i32, topk_scores (nq, k) f32,
+    n_candidates (nq,) i32)``; ids are corpus rows, ``-1`` under a
+    non-finite score, scores descend, and ``n_candidates`` sums the
+    probed buckets' FULL counts (``full_counts``, unclamped).  Needs a
+    cap-aligned layout (its block index is ``start // cap``).
+    ``plain=True`` scores with K5's plain PyTorch version on any
+    device."""
+    if layout.align != layout.cap:
+        raise ValueError(
+            "the fixed-cap engine indexes blocks by start/cap and needs a "
+            f"cap-aligned layout (align={layout.align}, cap={layout.cap}); "
+            "rebuild the layout with align=None or serve with the "
+            "grouped engine")
+    cap = layout.cap
+    qe = qk.extend_queries(layout, queries)
+    scores, start_pos = qk.bucket_scores(layout, qe, probe_ids, probe_valid,
+                                         plain=plain)
+    blk = start_pos.long() // cap
+    if layout.scale is not None and layout.scale.ndim == 1:
+        # per-row int8 dequantisation before the norms bias and the merge
+        scores = scores * layout.scale.view(-1, cap)[blk]
+    if layout.norms is not None:  # euclidean: 2q.c - ||c||^2
+        scores = scores - layout.norms.view(-1, cap)[blk]
+    nq, n_probes, _ = scores.shape
+    top_scores, arg = _largest_k(scores.reshape(nq, n_probes * cap), k)
+    pos = torch.gather(start_pos.long(), 1, arg // cap) + arg % cap
+    pos = torch.clamp(pos, 0, layout.n_rows - 1)
+    ids = torch.where(torch.isfinite(top_scores), layout.row_map[pos], -1)
+    return (ids.to(torch.int32), top_scores,
+            _n_candidates(probe_ids, probe_valid, full_counts))
 
 
 def _chunked_serve(queries, probe_ids, probe_valid, query_chunk: int,
@@ -107,10 +156,7 @@ def _merge(layout: qk.ServingLayout, probe_ids, probe_valid, full_counts,
         ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
         top_scores = torch.nn.functional.pad(top_scores, (0, k - k_eff),
                                              value=-torch.inf)
-    safe = torch.clamp(probe_ids.long(), 0, full_counts.shape[0] - 1)
-    n_cand = torch.sum(torch.where(probe_valid, full_counts[safe], 0), dim=1,
-                       dtype=torch.int32)
-    return ids, top_scores, n_cand
+    return ids, top_scores, _n_candidates(probe_ids, probe_valid, full_counts)
 
 
 def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,

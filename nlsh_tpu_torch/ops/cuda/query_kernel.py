@@ -1,4 +1,4 @@
-"""Serving layout, the grouped and windowed preps and their scoring kernels.
+"""Serving layout, the serving engines' preps and their scoring kernels.
 
 Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
 
@@ -8,7 +8,11 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   are L2-normalised (score = q.c); euclidean rows stay raw, queries are
   doubled and ``||c||^2`` rides a separate ``norms`` array (score =
   2q.c - ||c||^2).  ``n_aligned`` keeps the JAX package's ``+cap`` slack
-  and rounding to ``block_rows``, so the arrays compare bitwise.
+  and rounding to ``block_rows``, so the arrays compare bitwise.  Rows
+  are f32, bf16 or int8; an int8 layout carries its dequantisation
+  ``scale`` (one global scale, folded into the queries by
+  :func:`extend_queries`, or one per row, applied to the scores before
+  the norms).
 * **Grouped prep** (:func:`_grouped_prep_v2`): sorts the (query, probe)
   events by bucket and builds the group tables: one group per
   (bucket block, <= G probing queries).  Torch ops, not kernels.
@@ -21,12 +25,15 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   :func:`windowed_static_bound`.  Torch ops, not kernels.
 * **Kernels**: K1 :func:`grouped_scores_topk` (fused scores, mask and
   per-row top-kk), K2 :func:`grouped_scores` (raw panels), K3
-  :func:`windowed_scores_topk` (K1 with a ``[lo, hi)`` mask per slot)
-  and K4 :func:`windowed_scores` (raw windowed panels), written in CUDA
-  C++ in ``csrc/grouped_scores.cu``.  Each has its plain PyTorch
-  version beside it (``*_plain``).  A wrapper runs the plain version
-  only for tensors on the CPU; on a CUDA tensor it launches its kernel
-  or raises.
+  :func:`windowed_scores_topk` (K1 with a ``[lo, hi)`` mask per slot),
+  K4 :func:`windowed_scores` (raw windowed panels) and K7
+  :func:`int8_block_scores` (K2's kernel on int8 blocks), written in
+  CUDA C++ in ``csrc/grouped_scores.cu``; K5 :func:`bucket_scores_auto`
+  and K6 :func:`bucket_scores_impl`, the fixed-cap engine's masked
+  per-event scores behind the entry :func:`bucket_scores`, in
+  ``csrc/bucket_scores.cu``.  Each has its plain PyTorch version beside
+  it (``*_plain``).  A wrapper runs the plain version only for tensors
+  on the CPU; on a CUDA tensor it launches its kernel or raises.
 
 Parity notes (where a port of this module breaks most easily):
 
@@ -37,9 +44,10 @@ Parity notes (where a port of this module breaks most easily):
   row past the end and slice it off;
 * ``searchsorted(side="right")`` is ``right=True`` and
   ``associative_scan(max)`` is ``torch.cummax``;
+* int8 rounding is half to even in both (``torch.round``, ``jnp.round``);
 * storage stays int32 as in JAX; indices widen to int64 only to index.
 
-int8 layouts and the numpy ``*_host`` layout functions are still to be ported
+The numpy ``*_host`` layout functions are still to be ported
 (ROADMAP.md Queue 1, item 2).
 """
 
@@ -60,10 +68,12 @@ ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
 
 # launches of each kernel; a wrapper adds one where it launches
 KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
-                   "windowed_scores_topk": 0, "windowed_scores": 0}
+                   "windowed_scores_topk": 0, "windowed_scores": 0,
+                   "bucket_scores_auto": 0, "bucket_scores_impl": 0,
+                   "int8_block_scores": 0}
 
-# what csrc/grouped_scores.cu takes; the wrappers check it before a launch
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # its `dtype` argument
+# what the csrc kernels take; the wrappers check it before a launch
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # `dtype`
 _TILE = 128                # its kTileRows and kTileK
 _MAX_G = 32                # its kMaxG
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may use on sm_90
@@ -80,7 +90,7 @@ def _br(block_rows: int | None) -> int:
 class ServingLayout(NamedTuple):
     """Bucket-contiguous, metric-extended corpus for the serving path."""
 
-    data: torch.Tensor        # (n_aligned, d_pad) f32/bf16, bucket-major
+    data: torch.Tensor        # (n_aligned, d_pad) f32/bf16/int8, bucket-major
     row_map: torch.Tensor     # (n_aligned,) int32 -> corpus row, -1 pad
     starts: torch.Tensor      # (n_buckets,) int32 aligned bucket offsets
     counts: torch.Tensor      # (n_buckets,) int32
@@ -91,7 +101,10 @@ class ServingLayout(NamedTuple):
     total_blocks: int = 0     # sum_b ceil(min(count, cap) / block_rows)
     norms: torch.Tensor | None = None  # (n_aligned,) f32 ||c||^2, euclidean
     block_rows: int = 0       # rows per grouped-engine block; 0 = default
-    scale: torch.Tensor | None = None  # per-row int8 scale (not ported yet)
+    # int8 dequantisation: () f32 global (data = round(ext / scale), folded
+    # into the queries) or (n_aligned,) f32 per row (applied to the scores
+    # before the norms; 1.0 on padding rows); None for f32/bf16
+    scale: torch.Tensor | None = None
 
     @property
     def n_rows(self) -> int:
@@ -114,25 +127,63 @@ def _scatter_drop(n: int, index: torch.Tensor, values: torch.Tensor,
     return out[:n]
 
 
-def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
-                  metric: str, dtype=torch.float32, align: int | None = None):
-    """Layout core: ``(data, row_map, aligned_starts, norms)`` with shapes
-    ``(n_aligned, d_pad)`` / ``(n_aligned,)``; ``norms`` is None for
-    cosine."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"{dtype} layouts are not ported yet (ROADMAP.md Queue 1, item 2)")
-    n, _ = corpus.shape
-    align = cap if align is None else align
+def _check_scale_mode(scale_mode: str) -> None:
+    if scale_mode not in ("global", "per_row"):
+        raise ValueError(
+            f"unknown int8 scale_mode {scale_mode!r} (global|per_row)")
+
+
+def _metric_ext(corpus, metric: str):
+    """Metric-extended rows (cosine: L2-normalised) and, for euclidean,
+    the f32 squared norms (None for cosine)."""
     if metric == "cosine":
         nrm = torch.linalg.vector_norm(corpus, dim=1, keepdim=True)
-        ext = corpus / torch.clamp(nrm, min=1e-12)
-        sq = None
-    elif metric in ("euclidean", "sq_euclidean"):
-        ext = corpus
-        sq = torch.sum(corpus * corpus, dim=1)
-    else:
-        raise ValueError(f"unsupported serving metric {metric!r}")
+        return corpus / torch.clamp(nrm, min=1e-12), None
+    if metric in ("euclidean", "sq_euclidean"):
+        return corpus, torch.sum(corpus * corpus, dim=1)
+    raise ValueError(f"unsupported serving metric {metric!r}")
+
+
+def ext_scales(corpus, metric: str, scale_mode: str) -> torch.Tensor:
+    """int8 quantisation scale(s) in metric-EXTENDED space: () f32 for
+    ``"global"``, ``(n,)`` f32 for ``"per_row"``."""
+    ext, _ = _metric_ext(corpus, metric)
+    if scale_mode == "global":
+        return (torch.max(torch.abs(ext)) / 127.0).to(torch.float32)
+    return (torch.max(torch.abs(ext), dim=1).values / 127.0).to(torch.float32)
+
+
+def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
+                  metric: str, dtype=torch.float32, align: int | None = None,
+                  scale=None):
+    """Layout core: ``(data, row_map, aligned_starts, norms, scale_rows)``
+    with shapes ``(n_aligned, d_pad)`` / ``(n_aligned,)``; ``norms`` is
+    None for cosine, ``scale_rows`` None unless per-row int8.
+
+    ``dtype=torch.int8`` quantises rows as ``round(ext / scale)`` clipped
+    to [-127, 127]; ``scale`` is a () global scale (default ``max|ext| /
+    127`` over this corpus) or an ``(n,)`` per-corpus-row scale.
+    Euclidean ``norms`` are then of the DEQUANTISED rows."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported layout dtype {dtype}")
+    n, _ = corpus.shape
+    align = cap if align is None else align
+    ext, sq = _metric_ext(corpus, metric)
+
+    scale_per_row = None
+    if dtype == torch.int8:
+        if scale is None:
+            scale = torch.max(torch.abs(ext)) / 127.0
+        scale = torch.as_tensor(scale, dtype=torch.float32,
+                                device=corpus.device)
+        div = scale if scale.ndim == 0 else \
+            torch.clamp(scale, min=1e-30)[:, None]
+        ext = torch.clamp(torch.round(ext / div), -127, 127)
+        if scale.ndim == 1:
+            scale_per_row = torch.clamp(scale, min=1e-30)
+        if sq is not None:  # norms of the dequantised rows
+            eff = scale if scale.ndim == 0 else scale_per_row
+            sq = torch.sum(ext * ext, dim=1) * eff * eff
     d_ext = ext.shape[1]
     d_pad = _round_up(d_ext, LANE)
 
@@ -155,7 +206,12 @@ def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
     if sq is not None:
         norms = _scatter_drop(n_aligned, aligned_pos,
                               sq[rid].to(torch.float32), 0)
-    return data, row_map, aligned_starts.to(torch.int32), norms
+    scale_rows = None
+    if scale_per_row is not None:
+        # padding rows keep scale 1.0: masked lanes never turn inf or nan
+        scale_rows = _scatter_drop(n_aligned, aligned_pos,
+                                   scale_per_row[rid], 1.0)
+    return data, row_map, aligned_starts.to(torch.int32), norms, scale_rows
 
 
 def round_cap(cap: int, block_rows: int | None = None) -> int:
@@ -175,12 +231,14 @@ def aligned_rows(counts, cap: int, align: int | None = None) -> int:
 def serving_layout(table, corpus: torch.Tensor, metric: str = "cosine",
                    cap: int | None = None, dtype=torch.float32,
                    align: int | None = None, block_rows: int | None = None,
-                   device=None) -> ServingLayout:
+                   device=None, scale_mode: str = "per_row") -> ServingLayout:
     """Build the serving layout from a CSR bucket table on ``device``
     (default: the corpus's).  ``cap`` (default: the largest bucket) is
     rounded up to whole blocks; buckets past it are truncated at query
-    time.  ``dtype=torch.bfloat16`` halves the streamed bytes; queries
-    stay f32 either way."""
+    time.  ``dtype=torch.bfloat16`` halves the streamed bytes and
+    ``torch.int8`` quarters them, with ``scale_mode`` ``"per_row"`` (one
+    scale per row) or ``"global"`` (one for the corpus); queries stay
+    f32 either way."""
     device = corpus.device if device is None else torch.device(device)
     br = _br(block_rows)
     counts_np = table.counts.cpu().numpy()
@@ -191,27 +249,37 @@ def serving_layout(table, corpus: torch.Tensor, metric: str = "cosine",
     n_aligned = _round_up(aligned_rows(counts_np, cap, align=align), br)
     total_blocks = int((-(-np.minimum(counts_np, cap) // br)).sum())
     counts = table.counts.to(device)
-    data, row_map, starts, norms = layout_arrays(
+    corpus = corpus.to(device)
+    scale = None
+    if dtype == torch.int8:
+        _check_scale_mode(scale_mode)
+        scale = ext_scales(corpus, metric, scale_mode)
+    data, row_map, starts, norms, scale_rows = layout_arrays(
         table.row_ids.to(device), table.starts.to(device), counts,
-        corpus.to(device), cap=cap, n_aligned=n_aligned, metric=metric,
-        dtype=dtype, align=align,
+        corpus, cap=cap, n_aligned=n_aligned, metric=metric,
+        dtype=dtype, align=align, scale=scale,
     )
     return ServingLayout(
         data=data, row_map=row_map, starts=starts, counts=counts, cap=cap,
         d_pad=data.shape[1], align=align, metric=metric,
         total_blocks=total_blocks, norms=norms, block_rows=br,
+        scale=scale_rows if scale_rows is not None else scale,
     )
 
 
 def extend_queries(layout: ServingLayout, queries: torch.Tensor) -> torch.Tensor:
     """Metric-extend and zero-pad queries to ``(nq, d_pad)`` f32 to match
-    the layout (cosine: L2-normalised; euclidean: doubled)."""
+    the layout (cosine: L2-normalised; euclidean: doubled).  A global
+    int8 scale folds in here, so the kernels' dots come out in
+    dequantised units."""
     nq, d = queries.shape
     if layout.metric == "cosine":
         norms = torch.linalg.vector_norm(queries, dim=1, keepdim=True)
         ext = queries / torch.clamp(norms, min=1e-12)
     else:
         ext = 2.0 * queries
+    if layout.scale is not None and layout.scale.ndim == 0:
+        ext = ext * layout.scale
     out = torch.zeros((nq, layout.d_pad), dtype=torch.float32,
                       device=queries.device)
     out[:, :d] = ext.to(torch.float32)
@@ -728,3 +796,152 @@ def _launch_panels(data, grp_qvecs, grp_block, br: int,
         _ptr(out), g_total, G, d_pad, br, n_blocks, _stream(data.device))
     _raise_on(err, name)
     return out
+
+
+def int8_block_scores_plain(data, queries, block_ids,
+                            block_rows: int) -> torch.Tensor:
+    """Plain K7: ``out[b] = queries . upcast(block block_ids[b])^T``,
+    ``(len(block_ids), nq, block_rows)`` f32."""
+    blocks = data.view(-1, block_rows, data.shape[1])[block_ids.long()]
+    return torch.matmul(queries, blocks.to(torch.float32).transpose(1, 2))
+
+
+def int8_block_scores(data, queries, block_ids,
+                      block_rows: int) -> torch.Tensor:
+    """K7, the int8 block probe (replaces the inline kernel of
+    ``benchmarks/int8_probe.py``): each int8 block of ``block_rows`` rows
+    named by ``block_ids``, upcast to f32 and dotted with the f32
+    ``queries`` ``(nq, d_pad)``.  On the card this is K2's kernel on an
+    int8 layout with the query panel repeated for every block; it keeps
+    its own plain version and launch count.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if data.dtype != torch.int8:
+        raise ValueError(f"K7 scores int8 blocks, got {data.dtype}")
+    if data.device.type == "cpu":
+        return int8_block_scores_plain(data, queries, block_ids, block_rows)
+    qvecs = queries.expand(block_ids.shape[0], *queries.shape).contiguous()
+    out = _launch_panels(data, qvecs, block_ids, block_rows,
+                         "int8_block_scores")
+    KERNEL_LAUNCHES["int8_block_scores"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5/K6: the fixed-cap engine's masked per-event scores
+# ---------------------------------------------------------------------------
+
+def _bucket_scores_plain(data, queries_ext, index, counts, cap: int,
+                         stride: int) -> torch.Tensor:
+    """Plain K5 (``stride = cap``) and K6 (``stride = 1``): per (query,
+    probe) event the ``cap`` rows from row ``stride * index``, clamped
+    into the layout, dotted with the query; lanes ``>= counts`` are
+    ``-inf``.  Events go a chunk at a time, each chunk's gathered rows
+    as many bytes as a chunk of groups of the other plain versions."""
+    nq, n_probes = index.shape
+    n_ev = nq * n_probes
+    dev = queries_ext.device
+    first = torch.clamp(index.reshape(-1).long() * stride, 0,
+                        data.shape[0] - cap)
+    cnt = counts.reshape(-1)
+    qidx = torch.arange(nq, device=dev).repeat_interleave(n_probes)
+    lane = torch.arange(cap, device=dev)
+    out = torch.empty((n_ev, cap), dtype=torch.float32, device=dev)
+    chunk = max(_PLAIN_CHUNK * BLOCK_ROWS // cap, 1)
+    for s in range(0, n_ev, chunk):
+        e = min(s + chunk, n_ev)
+        rows = data[first[s:e, None] + lane].to(torch.float32)  # (c, cap, d)
+        sc = torch.matmul(rows, queries_ext[qidx[s:e], :, None])[..., 0]
+        out[s:e] = torch.where(lane < cnt[s:e, None], sc, -torch.inf)
+    return out.reshape(nq, n_probes, cap)
+
+
+def bucket_scores_auto_plain(data, queries_ext, block_idx, counts,
+                             cap: int) -> torch.Tensor:
+    """Plain K5: ``(nq, P, cap)`` scores of each event's cap-row block
+    ``block_idx`` (rows ``block_idx * cap`` on), lanes ``>= counts``
+    masked to ``-inf``."""
+    return _bucket_scores_plain(data, queries_ext, block_idx, counts, cap,
+                                cap)
+
+
+def bucket_scores_impl_plain(data, queries_ext, starts, counts,
+                             cap: int) -> torch.Tensor:
+    """Plain K6: as :func:`bucket_scores_auto_plain`, each event's block
+    starting at row ``starts``."""
+    return _bucket_scores_plain(data, queries_ext, starts, counts, cap, 1)
+
+
+def _launch_bucket(data, queries_ext, index, counts, cap: int, stride: int,
+                   name: str) -> torch.Tensor:
+    """Launch the fixed-cap kernel (K5's, also K6's) on validated
+    operands."""
+    if data.device.type != "cuda":
+        raise ValueError(f"the scoring kernels run on CUDA tensors, got {data.device}")
+    dev = data.device
+    n_rows, d_pad = data.shape
+    nq, n_probes = index.shape
+    _check("data", data, tuple(_DTYPE_CODE), (n_rows, d_pad), dev)
+    _check("queries_ext", queries_ext, (torch.float32,), (nq, d_pad), dev)
+    _check("index", index, (torch.int32,), (nq, n_probes), dev)
+    _check("counts", counts, (torch.int32,), (nq, n_probes), dev)
+    if d_pad % _TILE or d_pad * 4 > 48 * 1024 or not 1 <= cap <= n_rows:
+        raise ValueError(
+            f"d_pad={d_pad} must be a multiple of {_TILE} up to 12288, and "
+            f"cap={cap} between 1 and the layout's {n_rows} rows")
+    out = torch.empty((nq, n_probes, cap), dtype=torch.float32, device=dev)
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    err = load_library().nlsh_bucket_scores(
+        _DTYPE_CODE[data.dtype], _ptr(queries_ext), _ptr(data), _ptr(index),
+        _ptr(counts), _ptr(out), nq * n_probes, n_probes, cap, stride, d_pad,
+        n_rows, _stream(dev))
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return out
+
+
+def bucket_scores_auto(data, queries_ext, block_idx, counts,
+                       cap: int) -> torch.Tensor:
+    """K5, the fixed-cap engine's scorer (replaces ``_bucket_scores_auto``
+    of the JAX package): ``(nq, P, cap)`` f32 scores of each (query,
+    probe) event's cap-row block ``block_idx`` of a cap-aligned layout,
+    lanes ``>= counts`` ``-inf``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if data.device.type == "cpu":
+        return bucket_scores_auto_plain(data, queries_ext, block_idx, counts,
+                                        cap)
+    return _launch_bucket(data, queries_ext, block_idx, counts, cap, cap,
+                          "bucket_scores_auto")
+
+
+def bucket_scores_impl(data, queries_ext, starts, counts,
+                       cap: int) -> torch.Tensor:
+    """K6 (replaces ``_bucket_scores_impl`` of the JAX package, which has
+    no caller there): as :func:`bucket_scores_auto` with each event's
+    block at row offset ``starts``; K5's kernel with a row stride of 1.
+    CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if data.device.type == "cpu":
+        return bucket_scores_impl_plain(data, queries_ext, starts, counts,
+                                        cap)
+    return _launch_bucket(data, queries_ext, starts, counts, cap, 1,
+                          "bucket_scores_impl")
+
+
+def bucket_scores(layout: ServingLayout, queries_ext, probe_ids, probe_valid,
+                  plain: bool = False):
+    """Scores for every (query, probe, lane) candidate slot of a
+    cap-aligned layout, through K5 (``plain=True``: its plain version).
+
+    Returns ``scores (nq, P, cap)`` (higher is nearer, ``-inf`` on masked
+    lanes) and ``positions (nq, P)`` i32: each probe's first row in the
+    layout, clamped to ``n_rows - cap`` (lane ``l`` of probe ``p`` is
+    layout row ``positions[:, p] + l``)."""
+    cap = layout.cap
+    safe, counts = _probe_counts(layout.counts, probe_ids, probe_valid, cap)
+    starts = torch.clamp(layout.starts[safe], max=layout.n_rows - cap)
+    starts = starts.to(torch.int32)
+    block_idx = starts // cap  # cap-aligned layout: starts are block-exact
+    score = bucket_scores_auto_plain if plain else bucket_scores_auto
+    return score(layout.data, queries_ext, block_idx,
+                 counts.to(torch.int32), cap), starts

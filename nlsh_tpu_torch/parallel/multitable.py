@@ -198,6 +198,10 @@ class MultiTableIndexer:
         bucket starts offset by ``table * n_aligned``.  Built one table
         at a time into the preallocated flat arrays, so the peak is the
         flat layout plus one table's transients."""
+        if self.serving_dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(
+                f"{self.serving_dtype} stacked layouts are not ported yet "
+                "(ROADMAP.md Queue 1, item 9)")
         L, n = self.n_tables, n_aligned
         d_pad = qk._round_up(self.corpus.shape[1], qk.LANE)
         data = torch.empty((L * n, d_pad), dtype=self.serving_dtype,
@@ -210,7 +214,7 @@ class MultiTableIndexer:
             norms = torch.empty(L * n, dtype=torch.float32,
                                 device=self.device)
         for t in range(L):
-            d, rm, st, nr = qk.layout_arrays(
+            d, rm, st, nr, _ = qk.layout_arrays(
                 self.row_ids[t], self.starts[t], self.counts[t], self.corpus,
                 cap=cap, n_aligned=n, metric=self.metric,
                 dtype=self.serving_dtype, align=align)

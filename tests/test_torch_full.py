@@ -4,7 +4,12 @@ The bench workload (1,183,514 x 100, 10,000 queries, seed 0), f32, k = 10:
 
 * through ``nlsh_tpu_torch.Indexer`` with the committed trained params,
   16 flip probes, cap 512: the JAX package's exact-f32 CPU values,
-  recall@10 0.74264 and mean n_candidates 4670.30;
+  recall@10 0.74264 and mean n_candidates 4670.30, on the grouped and on
+  the fixed-cap engine (both serve the first 512 rows of each probed
+  bucket);
+* the same index on the per-row int8 layout, grouped engine: recall@10
+  0.72406 (the int8 target of ``chip_smoke.py``; see the test for how it
+  was derived) and the f32 candidates;
 * through ``nlsh_tpu_torch.parallel.MultiTableIndexer`` with the
   committed 8-table ensemble, 4 flip probes per table, the windowed
   engine after ``calibrate``: recall@10 0.99211, mean n_candidates
@@ -64,6 +69,55 @@ def test_full_bench_workload_on_cpu():
     ids, n_cand = idx.query(queries, k=10, hash_times=16, probe_mode="flip")
     recall = calculate_recall(gt, ids, np.mean)
     assert abs(recall - 0.74264) <= 0.0005, recall
+    assert abs(n_cand.mean() - 4670.30) <= 0.5, n_cand.mean()
+
+
+def _full_indexer(**kw):
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
+
+    corpus, queries, gt = _workload()
+    hashing = _make_hashing()
+    params_from_jax(hashing, read_msgpack(os.path.join(
+        _CACHE, "params_s0_n1183514_d100_q10000_k10_ts131072_v2_4da04f430c.msgpack")))
+    idx = Indexer(hashing, torch.from_numpy(corpus), device="cpu",
+                  metric="cosine", probe_budget=512, **kw)
+    return idx, queries, gt
+
+
+@pytest.mark.slow
+def test_full_fixed_cap_engine_on_cpu():
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    idx, queries, gt = _full_indexer(engine="fixed")
+    assert idx.layout.n_rows == 2_099_712
+    ids, n_cand = idx.query(queries, k=10, hash_times=16, probe_mode="flip")
+    recall = calculate_recall(gt, ids, np.mean)
+    assert abs(recall - 0.74264) <= 0.0005, recall
+    assert abs(n_cand.mean() - 4670.30) <= 0.5, n_cand.mean()
+
+
+# The per-row int8 grouped serve of the bench's table.  The port's int8
+# layout is checked against the JAX package's (bytes, row_map, scales)
+# by tests/test_torch_int8.py and tests/test_torch_index.py; this value
+# is the port's serve on the CPU (plain kernels, exact f32 arithmetic on
+# the stored int8 rows) and is the int8 window of chip_smoke.py.
+INT8_RECALL = 0.72406
+
+
+@pytest.mark.slow
+def test_full_int8_per_row_grouped_on_cpu():
+    import torch
+
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    idx, queries, gt = _full_indexer(serving_dtype=torch.int8)
+    assert idx.layout.scale.shape == (2_099_712,)
+    ids, n_cand = idx.query(queries, k=10, hash_times=16, probe_mode="flip")
+    recall = calculate_recall(gt, ids, np.mean)
+    assert abs(recall - INT8_RECALL) <= 0.0005, recall
     assert abs(n_cand.mean() - 4670.30) <= 0.5, n_cand.mean()
 
 

@@ -22,25 +22,37 @@ def _unit(rng, shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def _case(seed=0, g_total=16, G=32, br=128, d_pad=128, n_blocks=6):
-    """Synthetic groups with empty groups and counts below kk."""
+def _case(seed=0, g_total=16, G=32, br=128, d_pad=128, n_blocks=6,
+          dtype="float32"):
+    """Synthetic groups with empty groups and counts below kk.  For
+    ``dtype="int8"`` the rows are quantised per row, ``scale`` is their
+    dequantisation scale and the queries are small dyadic values, so
+    every dot sums exactly in f32."""
     rng = np.random.default_rng(seed)
     data = _unit(rng, (n_blocks * br, d_pad))
     qvecs = _unit(rng, (g_total, G, d_pad))
+    int8_scale = None
+    if dtype == "int8":
+        int8_scale = np.abs(data).max(axis=1) / np.float32(127.0)
+        data = np.clip(np.round(data / int8_scale[:, None]), -127,
+                       127).astype(np.int8)
+        qvecs = (rng.integers(-16, 17, qvecs.shape) / 64.0).astype(np.float32)
     grp_block = rng.integers(0, n_blocks, g_total).astype(np.int32)
     grp_cnt = rng.integers(0, br + 1, (g_total, G)).astype(np.int32)
     grp_cnt[3] = 0
     grp_cnt[5, :6] = rng.integers(0, 10, 6)
     norms = rng.uniform(0.5, 1.5, n_blocks * br).astype(np.float32)
     scale = rng.uniform(0.5, 1.5, n_blocks * br).astype(np.float32)
+    if int8_scale is not None:
+        scale = int8_scale.astype(np.float32)
     return data, qvecs, grp_block, grp_cnt, norms, scale
 
 
 @pytest.mark.parametrize("kk", [10, 16])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("has_norms,has_scale", [(False, False), (True, True)])
 def test_plain_k1_matches_pallas(kk, dtype, has_norms, has_scale):
-    data, qvecs, grp_block, grp_cnt, norms, scale = _case()
+    data, qvecs, grp_block, grp_cnt, norms, scale = _case(dtype=dtype)
     br = 128
     j_data = jnp.asarray(data).astype(jnp.dtype(dtype))
     packed = np.asarray(jqk._grouped_scores_topk(
@@ -62,9 +74,9 @@ def test_plain_k1_matches_pallas(kk, dtype, has_norms, has_scale):
     np.testing.assert_array_equal(lanes[fin], j_lanes[fin])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_plain_k2_matches_pallas(dtype):
-    data, qvecs, grp_block, _, _, _ = _case(seed=1)
+    data, qvecs, grp_block, _, _, _ = _case(seed=1, dtype=dtype)
     j_data = jnp.asarray(data).astype(jnp.dtype(dtype))
     want = np.asarray(jqk._grouped_scores_v3(
         j_data, jnp.asarray(qvecs), jnp.asarray(grp_block), interpret=True,
@@ -123,13 +135,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("kk", [10, 16])
 @pytest.mark.parametrize("extras", [False, True])
 @pytest.mark.parametrize("G,d_pad", [(32, 128), (8, 256)])
 def test_k1_kernel_matches_plain(cuda_device, dtype, kk, extras, G, d_pad):
     data, qvecs, grp_block, grp_cnt, norms, scale = _case(
-        seed=3, g_total=64, G=G, br=512, d_pad=d_pad, n_blocks=8)
+        seed=3, g_total=64, G=G, br=512, d_pad=d_pad, n_blocks=8,
+        dtype=str(dtype).split(".")[1])
     t = [torch.from_numpy(a).to(cuda_device)
          for a in (data, qvecs, grp_block, grp_cnt, norms, scale)]
     t[0] = t[0].to(dtype)
@@ -146,11 +159,12 @@ def test_k1_kernel_matches_plain(cuda_device, dtype, kk, extras, G, d_pad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("G,d_pad", [(32, 128), (8, 256)])
 def test_k2_kernel_matches_plain(cuda_device, dtype, G, d_pad):
     data, qvecs, grp_block, _, _, _ = _case(seed=4, g_total=64, G=G, br=512,
-                                            d_pad=d_pad, n_blocks=8)
+                                            d_pad=d_pad, n_blocks=8,
+                                            dtype=str(dtype).split(".")[1])
     t = [torch.from_numpy(a).to(cuda_device) for a in (data, qvecs, grp_block)]
     t[0] = t[0].to(dtype)
     got = qk.grouped_scores(*t, block_rows=512)

@@ -77,7 +77,7 @@ def test_hash_corpus_matches_jax():
 
 
 @pytest.mark.parametrize("metric", ["cosine", "euclidean"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("cap,align,block_rows", [
     (None, None, 128), (64, None, 128), (None, 8, 256),
 ])
@@ -122,9 +122,18 @@ def test_layout_rows_agree_on_gaussian_data():
     _assert_same(tl.row_map, jl.row_map)
     np.testing.assert_allclose(tl.data.numpy(), np.asarray(jl.data),
                                atol=2.5e-7, rtol=0)  # 2 ulp of a unit row
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        qk.serving_layout(build_bucket_table(torch.from_numpy(ids), 8),
-                          torch.from_numpy(corpus), dtype=torch.int8)
+    # int8 (per-row scales): the same bytes but for +-1 where an ulp of
+    # the normalisation moves a value across a .5 rounding boundary
+    jl8 = jqk.serving_layout(j_build(jnp.asarray(ids), 8), jnp.asarray(corpus),
+                             dtype=jnp.int8)
+    tl8 = qk.serving_layout(build_bucket_table(torch.from_numpy(ids), 8),
+                            torch.from_numpy(corpus), dtype=torch.int8)
+    _assert_same(tl8.row_map, jl8.row_map)
+    diff = np.abs(tl8.data.numpy().astype(np.int32)
+                  - np.asarray(jl8.data).astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).sum() <= 1e-3 * diff.size
+    np.testing.assert_allclose(tl8.scale.numpy(), np.asarray(jl8.scale),
+                               rtol=5e-7, atol=0)  # a few ulp
 
 
 @pytest.mark.parametrize("group_q,block_rows,shrink", [

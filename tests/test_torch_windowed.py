@@ -116,11 +116,21 @@ def test_windowed_prep_matches_jax_bitwise(g_total, group_q):
     assert (lo[hi == 0] == 0).all() and (hi > lo).sum() > 0
 
 
-def _kernel_case(seed=0, g_total=16, G=32, br=BR, d_pad=128, n_windows=6):
-    """Synthetic windowed groups: empty slots, hi - lo below kk, lo > 0."""
+def _kernel_case(seed=0, g_total=16, G=32, br=BR, d_pad=128, n_windows=6,
+                 dtype="float32"):
+    """Synthetic windowed groups: empty slots, hi - lo below kk, lo > 0.
+    For ``dtype="int8"`` the rows are quantised per row, ``scale`` is
+    their dequantisation scale and the queries are small dyadic values
+    (every dot sums exactly in f32)."""
     rng = np.random.default_rng(seed)
     data = _unit(rng, (n_windows * br, d_pad))
     qvecs = _unit(rng, (g_total, G, d_pad))
+    int8_scale = None
+    if dtype == "int8":
+        int8_scale = np.abs(data).max(axis=1) / np.float32(127.0)
+        data = np.clip(np.round(data / int8_scale[:, None]), -127,
+                       127).astype(np.int8)
+        qvecs = (rng.integers(-16, 17, qvecs.shape) / 64.0).astype(np.float32)
     grp_window = np.sort(rng.integers(0, n_windows, g_total)).astype(np.int32)
     lo = rng.integers(0, br, (g_total, G)).astype(np.int32)
     hi = np.minimum(lo + rng.integers(1, br, (g_total, G)), br).astype(np.int32)
@@ -129,15 +139,18 @@ def _kernel_case(seed=0, g_total=16, G=32, br=BR, d_pad=128, n_windows=6):
     lo[g_total - 1] = hi[g_total - 1] = 0                   # a dead group
     norms = rng.uniform(0.5, 1.5, n_windows * br).astype(np.float32)
     scale = rng.uniform(0.5, 1.5, n_windows * br).astype(np.float32)
+    if int8_scale is not None:
+        scale = int8_scale.astype(np.float32)
     return data, qvecs, grp_window, lo, hi, norms, scale
 
 
 @pytest.mark.parametrize("kk,dtype,has_norms,has_scale", [
     (10, "float32", False, False), (16, "float32", True, True),
     (10, "bfloat16", True, True), (16, "bfloat16", False, False),
+    (10, "int8", True, True), (16, "int8", False, True),
 ])
 def test_plain_k3_matches_pallas(kk, dtype, has_norms, has_scale):
-    data, qvecs, win, lo, hi, norms, scale = _kernel_case()
+    data, qvecs, win, lo, hi, norms, scale = _kernel_case(dtype=dtype)
     packed = np.asarray(jqk._windowed_scores_topk(
         jnp.asarray(data).astype(jnp.dtype(dtype)), jnp.asarray(norms),
         jnp.asarray(qvecs), jnp.asarray(win), jnp.asarray(lo), jnp.asarray(hi),
@@ -160,9 +173,9 @@ def test_plain_k3_matches_pallas(kk, dtype, has_norms, has_scale):
     assert ((lanes >= lo[..., None]) & (lanes < hi[..., None]))[fin].all()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_plain_k4_matches_pallas(dtype):
-    data, qvecs, win, *_ = _kernel_case(seed=1)
+    data, qvecs, win, *_ = _kernel_case(seed=1, dtype=dtype)
     want = np.asarray(jqk._windowed_scores(
         jnp.asarray(data).astype(jnp.dtype(dtype)), jnp.asarray(qvecs),
         jnp.asarray(win), interpret=True, block_rows=BR))
@@ -256,13 +269,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("kk", [10, 16])
 @pytest.mark.parametrize("extras", [False, True])
 @pytest.mark.parametrize("G,d_pad", [(32, 128), (8, 256)])
 def test_k3_kernel_matches_plain(cuda_device, dtype, kk, extras, G, d_pad):
     data, qvecs, win, lo, hi, norms, scale = _kernel_case(
-        seed=3, g_total=64, G=G, br=512, d_pad=d_pad, n_windows=8)
+        seed=3, g_total=64, G=G, br=512, d_pad=d_pad, n_windows=8,
+        dtype=str(dtype).split(".")[1])
     t = [torch.from_numpy(a).to(cuda_device)
          for a in (data, qvecs, win, lo, hi, norms, scale)]
     t[0] = t[0].to(dtype)
@@ -279,10 +293,11 @@ def test_k3_kernel_matches_plain(cuda_device, dtype, kk, extras, G, d_pad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_k4_kernel_matches_plain(cuda_device, dtype):
     data, qvecs, win, *_ = _kernel_case(seed=4, g_total=64, br=512,
-                                        n_windows=8)
+                                        n_windows=8,
+                                        dtype=str(dtype).split(".")[1])
     t = [torch.from_numpy(a).to(cuda_device) for a in (data, qvecs, win)]
     t[0] = t[0].to(dtype)
     before = qk.KERNEL_LAUNCHES["windowed_scores"]
