@@ -33,10 +33,23 @@ after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
 k=20; K5: the fixed-cap serve; K6: the serve's events scored by row
 offset, since the JAX package has no caller of it; K7: the int8 probe).
-Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``.  Any failed check raises, so the exit code is
-non-zero and no result line is printed.  Needs no network and imports
-nothing of JAX.
+
+Every kernel time comes with its plain version's, its bound and its
+yardstick: ``bound_ms`` is the larger of the bytes the call must move
+(each corpus row a live lane keeps, each query row and table once, each
+output once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
+(``nlsh_tpu_torch.ops.cuda.bounds``, counted from the call's own
+inputs over the rows' real width: 100 features, not the 128 of the
+padded layout), ``bound_by`` says which, ``bound_share`` is bound over
+time; ``library_ms`` times one PyTorch call computing the same function
+where there is one (``torch.bmm``/``matmul`` on blocks gathered
+beforehand, for K2, K4 and K7), else it is null and ``library_note``
+says why.  The
+fused top-k kernel's resident blocks per SM are in ``kernel_times`` and
+``ensemble_kernel_times``.  Then one ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+the exit code is non-zero and no result line is printed.  Needs no
+network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,15 +89,16 @@ MT_GATHER_QUERIES = 1000
 # the single table on the per-row int8 layout, grouped engine: the port's
 # plain serve on the CPU gives 0.72406 (tests/test_torch_full.py)
 INT8_RECALL_RANGE = (0.7231, 0.7251)
+TOPK_SRC = "nlsh_tpu_torch/csrc/grouped_topk.cu"
 GROUPED_SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
 BUCKET_SRC = "nlsh_tpu_torch/csrc/bucket_scores.cu"
 REPLACES = {  # the TPU kernel each CUDA kernel replaces, and its source
     "grouped_scores_topk": ("nlsh_tpu/ops/pallas/query_kernel.py:879",
-                            GROUPED_SRC),
+                            TOPK_SRC),
     "grouped_scores": ("nlsh_tpu/ops/pallas/query_kernel.py:766",
                        GROUPED_SRC),
     "windowed_scores_topk": ("nlsh_tpu/ops/pallas/query_kernel.py:1372",
-                             GROUPED_SRC),
+                             TOPK_SRC),
     "windowed_scores": ("nlsh_tpu/ops/pallas/query_kernel.py:1453",
                         GROUPED_SRC),
     "bucket_scores_auto": ("nlsh_tpu/ops/pallas/query_kernel.py:634",
@@ -93,6 +107,18 @@ REPLACES = {  # the TPU kernel each CUDA kernel replaces, and its source
                            BUCKET_SRC),
     "int8_block_scores": ("benchmarks/int8_probe.py:66", GROUPED_SRC),
 }
+# the yardstick of each kernel: one PyTorch call computing the same
+# function on the same inputs (timed here, never called by the port)
+NO_LIBRARY_TOPK = ("none: no one PyTorch call computes a per-lane mask and "
+                   "a per-row top-k with the lowest-lane tie rule")
+NO_LIBRARY_BUCKET = ("none: no one PyTorch call masks each event's lanes; a "
+                     "batched product would first gather every event's cap "
+                     "rows (42 GB at the serve's events)")
+LIBRARY_BMM = ("torch.bmm(grp_qvecs, blocks^T) on f32 blocks gathered before "
+               "the timed region: the gather is left out, which flatters the "
+               "library")
+LIBRARY_K7 = ("torch.matmul(queries, blocks^T) on the upcast blocks gathered "
+              "before the timed region: the gather is left out")
 
 
 def emit(phase: str, **fields) -> None:
@@ -129,6 +155,35 @@ def read_launches(*names: str) -> dict:
     check(all(v > 0 for v in got.values()),
           f"every kernel of the path must launch: {got}")
     return got
+
+
+def kernel_entry(err: float, ms: float, plain_ms: float, counts,
+                 library_ms: float | None, library_note: str) -> dict:
+    """A kernel's numbers: its error against the plain version, its time,
+    the plain version's, the library call's (None where there is none,
+    with the reason), and its bound from ``counts`` with the share of it
+    the kernel reaches (bound over time)."""
+    from nlsh_tpu_torch.ops.cuda import bounds
+
+    b = bounds.bound(counts)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_note": library_note,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bound_share": b["bound_ms"] / ms, "bytes": b["bytes"],
+            "flops": b["flops"]}
+
+
+def bmm_ms(data, grp_qvecs, grp_block, br: int, reps: int) -> float:
+    """The raw panels' yardstick: ``torch.bmm`` on the groups' blocks,
+    gathered (and upcast to f32) before the timed region."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    blocks = qk._group_blocks(data, grp_block, br).transpose(1, 2)
+    ms = cuda_ms(lambda: torch.bmm(grp_qvecs, blocks), reps)
+    del blocks
+    return ms
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -181,7 +236,8 @@ def phase_build() -> None:
     paths = build.build()
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
-             if "registers" in ln or "smem" in ln or ln.startswith("==")]
+             if "registers" in ln or "smem" in ln or "entry function" in ln
+             or "spill" in ln or ln.startswith("==")]
     emit("build", build_s=time.perf_counter() - t0, nvcc_s=build.build_seconds,
          libraries=[os.path.relpath(p, ROOT) for p in paths.values()],
          ptxas=ptxas)
@@ -436,9 +492,16 @@ def phase_int8_probe():
     agree = float(np.mean([
         len(set(np.argsort(-exact[i])[:10]) & set(np.argsort(-quant[i])[:10]))
         / 10 for i in range(fq.shape[0])]))
-    times = {"max_abs_err": float((out - ref).abs().max()),
-             "ms": cuda_ms(lambda: qk.int8_block_scores(*t, br), 20),
-             "plain_ms": cuda_ms(lambda: qk.int8_block_scores_plain(*t, br), 20)}
+    from nlsh_tpu_torch.ops.cuda import bounds
+
+    blocks = t[0].view(-1, br, lane)[t[2].long()].to(torch.float32)
+    blocks = blocks.transpose(1, 2)
+    times = kernel_entry(
+        float((out - ref).abs().max()),
+        cuda_ms(lambda: qk.int8_block_scores(*t, br), 20),
+        cuda_ms(lambda: qk.int8_block_scores_plain(*t, br), 20),
+        bounds.panel_counts(t[0], t[1], t[2], nq, br, lane),
+        cuda_ms(lambda: torch.matmul(t[1], blocks), 20), LIBRARY_K7)
     emit("int8_probe", n_blocks=n_blocks, block_rows=br, nq=nq, bitwise=True,
          top10_agreement_int8_vs_f32=agree, launches=launches, **times)
     return launches, times
@@ -559,9 +622,12 @@ def _panel_err(name: str, got, want, lay, blk) -> float:
 
 def _grouped_times(lay, q, pid, pv) -> dict:
     """K1/K2 and their plain versions at the grouped prep of all the
-    queries on ``lay``: CUDA-event times and max score error."""
+    queries on ``lay``: CUDA-event times and max score error.  Bounds
+    count the queries' own width (the metric-extended one, cosine and
+    euclidean alike), not the layout's padded ``d_pad``."""
     import torch
 
+    from nlsh_tpu_torch.ops.cuda import bounds
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
     max_blocks = lay.cap // lay.br
@@ -575,35 +641,39 @@ def _grouped_times(lay, q, pid, pv) -> dict:
     out = {}
     err = _topk_check("K1", qk.grouped_scores_topk(*args, grp_cnt, K, **kw),
                       qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw))
-    out["grouped_scores_topk"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: qk.grouped_scores_topk(
-            *args, grp_cnt, K, **kw), 20),
-        "plain_ms": cuda_ms(lambda: qk.grouped_scores_topk_plain(
-            *args, grp_cnt, K, **kw), 3),
-    }
+    out["grouped_scores_topk"] = kernel_entry(
+        err, cuda_ms(lambda: qk.grouped_scores_topk(*args, grp_cnt, K, **kw), 20),
+        cuda_ms(lambda: qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw), 3),
+        bounds.topk_counts(*args, None, grp_cnt, K, lay.br, q.shape[1],
+                           kw["norms"], kw["scale_rows"]),
+        None, NO_LIBRARY_TOPK)
     err = _panel_err("K2", qk.grouped_scores(*args, block_rows=lay.br),
                      qk.grouped_scores_plain(*args, block_rows=lay.br), lay,
                      grp_block)
-    out["grouped_scores"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: qk.grouped_scores(*args, block_rows=lay.br), 20),
-        "plain_ms": cuda_ms(lambda: qk.grouped_scores_plain(
-            *args, block_rows=lay.br), 3),
-    }
+    out["grouped_scores"] = kernel_entry(
+        err, cuda_ms(lambda: qk.grouped_scores(*args, block_rows=lay.br), 20),
+        cuda_ms(lambda: qk.grouped_scores_plain(*args, block_rows=lay.br), 3),
+        bounds.panel_counts(lay.data, grp_qvecs, grp_block, 32, lay.br,
+                            q.shape[1]),
+        bmm_ms(*args, lay.br, 5), LIBRARY_BMM)
     torch.cuda.synchronize()
     return {"g_total": g_total, "group_q": 32, "block_rows": lay.br,
             "d_pad": lay.d_pad,
             "live_groups": int((grp_cnt.max(dim=1).values > 0).sum()),
+            "live_slots": int((grp_cnt > 0).sum()),
+            "topk_blocks_per_sm": qk.topk_blocks_per_sm(
+                lay.data.dtype, lay.d_pad, windowed=False),
             "kernels": out}
 
 
 def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
     """K3/K4 and their plain versions at the windowed prep of the probes
     ``(pid, pv)`` on ``lay`` with ``g_total`` groups: CUDA-event times
-    and max score error."""
+    and max score error (bounds over the queries' own width, as in
+    :func:`_grouped_times`)."""
     import torch
 
+    from nlsh_tpu_torch.ops.cuda import bounds
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
     grp_window, grp_qvecs, grp_lo, grp_hi, *_ = qk._windowed_prep(
@@ -616,27 +686,29 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
     out = {}
     err = _topk_check("K3", qk.windowed_scores_topk(*args, *topk, **kw),
                       qk.windowed_scores_topk_plain(*args, *topk, **kw))
-    out["windowed_scores_topk"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: qk.windowed_scores_topk(*args, *topk, **kw), 20),
-        "plain_ms": cuda_ms(lambda: qk.windowed_scores_topk_plain(
-            *args, *topk, **kw), 3),
-    }
+    out["windowed_scores_topk"] = kernel_entry(
+        err, cuda_ms(lambda: qk.windowed_scores_topk(*args, *topk, **kw), 20),
+        cuda_ms(lambda: qk.windowed_scores_topk_plain(*args, *topk, **kw), 3),
+        bounds.topk_counts(*args, *topk, lay.br, q.shape[1], kw["norms"],
+                           kw["scale_rows"]), None, NO_LIBRARY_TOPK)
     err = _panel_err("K4", qk.windowed_scores(*args, block_rows=lay.br),
                      qk.windowed_scores_plain(*args, block_rows=lay.br), lay,
                      grp_window)
-    out["windowed_scores"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br),
-                      panel_reps),
-        "plain_ms": cuda_ms(lambda: qk.windowed_scores_plain(
-            *args, block_rows=lay.br), 3),
-    }
+    out["windowed_scores"] = kernel_entry(
+        err, cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br),
+                     panel_reps),
+        cuda_ms(lambda: qk.windowed_scores_plain(*args, block_rows=lay.br), 3),
+        bounds.panel_counts(lay.data, grp_qvecs, grp_window, qk.GROUP_W,
+                            lay.br, q.shape[1]),
+        bmm_ms(*args, lay.br, panel_reps), LIBRARY_BMM)
     torch.cuda.synchronize()
     live = grp_hi > grp_lo
     return {"g_total": g_total, "group_q": qk.GROUP_W, "block_rows": lay.br,
             "d_pad": lay.d_pad, "live_groups": int(live.any(dim=1).sum()),
-            "live_slots": int(live.sum()), "kernels": out}
+            "live_slots": int(live.sum()),
+            "topk_blocks_per_sm": qk.topk_blocks_per_sm(
+                lay.data.dtype, lay.d_pad, windowed=True),
+            "kernels": out}
 
 
 def phase_kernel_times(idx, queries: np.ndarray) -> dict:
@@ -771,6 +843,7 @@ def _fixed_times(lay, q, pid, pv):
     layout.  Returns K6's launch count, the times and the live rows."""
     import torch
 
+    from nlsh_tpu_torch.ops.cuda import bounds
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
     qe = qk.extend_queries(lay, q)
@@ -794,15 +867,17 @@ def _fixed_times(lay, q, pid, pv):
         k5, p5 = k5 * w, p5 * w
     err = _masked_err("K5", k5, p5, False)
     del k5, p5
+    counts5 = bounds.bucket_counts(lay.data, qe, starts, counts, lay.cap,
+                                   q.shape[1])
     out = {
-        "bucket_scores_auto": {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: qk.bucket_scores_auto(*five), 20),
-            "plain_ms": cuda_ms(lambda: qk.bucket_scores_auto_plain(*five), 3)},
-        "bucket_scores_impl": {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: qk.bucket_scores_impl(*six), 20),
-            "plain_ms": cuda_ms(lambda: qk.bucket_scores_impl_plain(*six), 3)},
+        "bucket_scores_auto": kernel_entry(
+            err, cuda_ms(lambda: qk.bucket_scores_auto(*five), 20),
+            cuda_ms(lambda: qk.bucket_scores_auto_plain(*five), 3), counts5,
+            None, NO_LIBRARY_BUCKET),
+        "bucket_scores_impl": kernel_entry(
+            err, cuda_ms(lambda: qk.bucket_scores_impl(*six), 20),
+            cuda_ms(lambda: qk.bucket_scores_impl_plain(*six), 3), counts5,
+            None, NO_LIBRARY_BUCKET),
     }
     return launches, out, int(counts.sum())
 
@@ -1166,9 +1241,11 @@ def main() -> int:
     phase_ensemble_parity(midx, queries, mt_ids, mt_cand)
     phase_ensemble_guard(midx, queries, mt_ids, mt_cand)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "library_ms", "library_note")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **times[name]}
+         "launches": launches[name], **{k: times[name][k] for k in keys}}
         for name, (replaces, src) in REPLACES.items()
     ]}), flush=True)
     check("jax" not in sys.modules, "jax was imported")

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 # source -> {name: argtypes} of its extern "C" entry points; all return
 # cudaError_t
 SOURCES = {
-    "grouped_scores.cu": {
+    "grouped_topk.cu": {
         # dtype, qvecs, data, grp_block, grp_cnt, norms, scale, out_scores,
         # out_lanes, g_total, G, d_pad, br, n_blocks, kk, stream
         "nlsh_grouped_scores_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -40,6 +40,10 @@ SOURCES = {
         # out_scores, out_lanes, g_total, G, d_pad, br, n_windows, kk, stream
         "nlsh_windowed_scores_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, windowed, d_pad, out int* (resident blocks per SM)
+        "nlsh_topk_blocks_per_sm": [_I, _I, _I, _P],
+    },
+    "grouped_scores.cu": {
         # dtype, qvecs, data, grp_block, out, g_total, G, d_pad, br,
         # n_blocks, stream (K2, K4 on a window table, K7 on int8 blocks)
         "nlsh_grouped_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

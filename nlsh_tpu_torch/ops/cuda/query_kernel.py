@@ -28,7 +28,8 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   :func:`windowed_scores_topk` (K1 with a ``[lo, hi)`` mask per slot),
   K4 :func:`windowed_scores` (raw windowed panels) and K7
   :func:`int8_block_scores` (K2's kernel on int8 blocks), written in
-  CUDA C++ in ``csrc/grouped_scores.cu``; K5 :func:`bucket_scores_auto`
+  CUDA C++: K1 and K3 in ``csrc/grouped_topk.cu``, K2, K4 and K7 in
+  ``csrc/grouped_scores.cu``; K5 :func:`bucket_scores_auto`
   and K6 :func:`bucket_scores_impl`, the fixed-cap engine's masked
   per-event scores behind the entry :func:`bucket_scores`, in
   ``csrc/bucket_scores.cu``.  Each has its plain PyTorch version beside
@@ -74,9 +75,13 @@ KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
 
 # what the csrc kernels take; the wrappers check it before a launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # `dtype`
-_TILE = 128                # its kTileRows and kTileK
-_MAX_G = 32                # its kMaxG
+_TILE = 128                # their kTileRows (and K2's kTileK)
+_MAX_G = 32                # their kMaxG
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may use on sm_90
+# grouped_topk.cu (K1, K3): its ring of kStages stages of 128 rows x
+# kRowStride bytes, kCap (score, lane) candidates per slot, and at most
+# kMaxTiles tiles of 128 rows per block
+_TOPK_STAGES, _TOPK_ROW_STRIDE, _TOPK_CAP, _TOPK_MAX_TILES = 2, 144, 64, 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -644,6 +649,33 @@ def _check(name: str, t: torch.Tensor, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_smem_bytes(d_pad: int, topk: bool) -> int:
+    """Dynamic shared memory of one block of the fused top-k kernel (K1,
+    K3: the group's f32 query rows, the corpus ring and the slots'
+    candidate buffers, whatever the block rows) or of the raw-panel
+    kernel (K2, K4, K7: the query rows and one f32 tile of 128 x 132
+    floats)."""
+    if topk:
+        return (4 * _MAX_G * d_pad + _TOPK_STAGES * _TILE * _TOPK_ROW_STRIDE
+                + 8 * _MAX_G * _TOPK_CAP)
+    return 4 * (_MAX_G * d_pad + _TILE * (_TILE + 4))
+
+
+def launch_shape_error(d_pad: int, br: int, topk: bool) -> str | None:
+    """Why the fused (``topk``) or raw-panel kernel cannot take blocks of
+    ``br`` rows of ``d_pad`` features, or None if it can."""
+    if br <= 0 or d_pad <= 0 or br % _TILE or d_pad % _TILE:
+        return (f"block_rows={br} and d_pad={d_pad} must be multiples of "
+                f"{_TILE}")
+    smem = kernel_smem_bytes(d_pad, topk)
+    if smem > _SMEM_LIMIT:
+        return (f"d_pad={d_pad} needs {smem} bytes of shared memory, over the "
+                f"{_SMEM_LIMIT} a block may use")
+    if topk and br > _TOPK_MAX_TILES * _TILE:
+        return f"block_rows={br} above the fused kernel's {_TOPK_MAX_TILES * _TILE}"
+    return None
+
+
 def _check_launch(data, grp_qvecs, grp_block, br: int, topk: bool):
     """Validate the common operands of a CUDA launch; returns the
     shape numbers the kernel takes."""
@@ -657,14 +689,12 @@ def _check_launch(data, grp_qvecs, grp_block, br: int, topk: bool):
     _check("grp_block", grp_block, (torch.int32,), (g_total,), dev)
     if not 1 <= G <= _MAX_G:
         raise ValueError(f"group width {G} outside [1, {_MAX_G}]")
-    if br % _TILE or d_pad % _TILE or n_aligned % br or n_aligned == 0:
-        raise ValueError(
-            f"block_rows={br} and d_pad={d_pad} must be multiples of {_TILE}, "
-            f"and the layout's {n_aligned} rows a positive multiple of block_rows")
-    smem = 4 * (_MAX_G * d_pad + _TILE * (_TILE + 4) + (_MAX_G * br if topk else 0))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"d_pad={d_pad}, block_rows={br} need {smem} bytes of "
-                         f"shared memory, over the {_SMEM_LIMIT} a block may use")
+    why = launch_shape_error(d_pad, br, topk)
+    if why is None and (n_aligned % br or n_aligned == 0):
+        why = (f"the layout's {n_aligned} rows must be a positive multiple of "
+               f"block_rows={br} (block_rows and d_pad multiples of {_TILE})")
+    if why is not None:
+        raise ValueError(why)
     return g_total, G, d_pad, n_aligned // br
 
 
@@ -716,6 +746,19 @@ def grouped_scores_topk(data, grp_qvecs, grp_block, grp_cnt, kk: int,
     _raise_on(err, "grouped_scores_topk")
     KERNEL_LAUNCHES["grouped_scores_topk"] += 1
     return scores, lanes
+
+
+def topk_blocks_per_sm(dtype, d_pad: int, windowed: bool) -> int:
+    """Resident blocks per SM of the fused top-k kernel (K3 if
+    ``windowed``, else K1) on the current card for a layout ``dtype`` and
+    ``d_pad``; its persistent grid is this times the SM count."""
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    out = ctypes.c_int(0)
+    _raise_on(load_library().nlsh_topk_blocks_per_sm(
+        _DTYPE_CODE[dtype], int(windowed), d_pad, ctypes.byref(out)),
+        "topk_blocks_per_sm")
+    return out.value
 
 
 def grouped_scores(data, grp_qvecs, grp_block,

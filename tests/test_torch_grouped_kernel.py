@@ -184,3 +184,143 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         qk.grouped_scores_topk(*t[:3], t[3].T.contiguous().T, 10,
                                block_rows=128)
+
+
+# -- the fused kernel's edge cases, on the card ------------------------------
+
+def _k1_on_card(dev, data, qvecs, grp_block, grp_cnt, kk, br, **extra):
+    """K1 and its plain version on the card; the kernel must launch once,
+    keep the plain version's -inf pattern and scores (1e-5) and its lanes
+    wherever the score is finite.  Returns the kernel's output."""
+    t = [torch.as_tensor(a).to(dev) for a in (data, qvecs, grp_block, grp_cnt)]
+    kw = dict(block_rows=br, **{k: torch.as_tensor(v).to(dev)
+                                for k, v in extra.items()})
+    before = qk.KERNEL_LAUNCHES["grouped_scores_topk"]
+    s, ln = qk.grouped_scores_topk(*t, kk, **kw)
+    assert qk.KERNEL_LAUNCHES["grouped_scores_topk"] == before + 1
+    ps, pln = qk.grouped_scores_topk_plain(*t, kk, **kw)
+    fin = torch.isfinite(ps)
+    assert torch.equal(torch.isfinite(s), fin)
+    if fin.any():
+        assert float((s - ps)[fin].abs().max()) <= 1e-5
+    assert torch.equal(ln[fin], pln[fin])
+    assert bool(((ln >= 0) & (ln < br)).all())
+    return s, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kk", [1, 16])
+@pytest.mark.parametrize("G", [13, 32])
+@pytest.mark.parametrize("br,d_pad", [(1024, 256), (2048, 128), (8192, 128),
+                                     (512, 1280), (1024, 1280)])
+def test_k1_kernel_shapes(cuda_device, dtype, kk, G, br, d_pad):
+    """kk at both ends, a partial group width, 1024-row blocks of 256
+    features, and the shapes the new footprint admits past what a (G, br)
+    score panel in shared memory allowed: 2048 and 8192 (the most) rows
+    of 128 features, and 1280 features (the most) at 512 and 1024 rows."""
+    data, qvecs, grp_block, grp_cnt, norms, scale = _case(
+        seed=6, g_total=40, G=G, br=br, d_pad=d_pad, n_blocks=4,
+        dtype=str(dtype).split(".")[1])
+    _k1_on_card(cuda_device, torch.from_numpy(data).to(dtype), qvecs,
+                grp_block, grp_cnt, kk, br, norms=norms, scale_rows=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [1, 16])
+def test_k1_kernel_ties_across_tiles(cuda_device, kk):
+    """Exact ties in different 128-row tiles of a 512-row block (and the
+    many exact zeros after them): the lower lane first, across tiles."""
+    br = 512
+    rng = np.random.default_rng(7)
+    data = np.zeros((2 * br, 128), np.float32)
+    data[:, 1:] = rng.normal(size=(2 * br, 127)) * 1e-3
+    for blk in range(2):
+        data[blk * br + np.array([5, 130, 300, 450]), 0] = 1.0
+        data[blk * br + np.array([7, 200, 511]), 0] = 0.5
+    qvecs = np.zeros((16, 32, 128), np.float32)
+    qvecs[..., 0] = 1.0
+    grp_block = np.arange(16, dtype=np.int32) % 2
+    grp_cnt = np.full((16, 32), br, np.int32)
+    grp_cnt[:, 1] = 301
+    s, ln = _k1_on_card(cuda_device, data, qvecs, grp_block, grp_cnt, kk, br)
+    want = np.array([5, 130, 300, 450, 7, 200, 511])[:kk]
+    assert (ln[:, 0, :len(want)].cpu().numpy() == want).all()
+    want1 = np.array([5, 130, 300, 7, 200])[:kk]
+    assert (ln[:, 1, :len(want1)].cpu().numpy() == want1).all()
+
+
+@pytest.mark.cuda
+def test_k1_kernel_scores_a_row_the_same_wherever_it_sits(cuda_device):
+    """One corpus row at lane 3 of block 0, 129 of block 1 and 400 of
+    block 2 scores bit-identically in each (f32, with norms)."""
+    br = 512
+    rng = np.random.default_rng(8)
+    data = _unit(rng, (3 * br, 128)) * 0.5
+    row = _unit(rng, (128,))
+    data[[3, br + 129, 2 * br + 400]] = row
+    qvecs = np.repeat(_unit(rng, (1, 32, 128)), 3, axis=0)
+    qvecs[:, 0] = row
+    norms = np.full(3 * br, 0.25, np.float32)
+    s, ln = _k1_on_card(cuda_device, data, qvecs,
+                        np.arange(3, dtype=np.int32),
+                        np.full((3, 32), br, np.int32), 4, br, norms=norms)
+    assert ln[:, 0, 0].tolist() == [3, 129, 400]
+    assert s[0, 0, 0] == s[1, 0, 0] == s[2, 0, 0]
+
+
+@pytest.mark.cuda
+def test_k1_kernel_more_groups_than_its_grid(cuda_device):
+    """A group table several times the persistent grid (resident blocks
+    per SM x SMs), with dead groups among the live ones."""
+    per_sm = qk.topk_blocks_per_sm(torch.float32, 128, windowed=False)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert per_sm >= 2
+    g_total = 3 * per_sm * sms + 37
+    data, qvecs, grp_block, grp_cnt, norms, _ = _case(
+        seed=9, g_total=g_total, br=256, n_blocks=32)
+    grp_cnt[::11] = 0
+    _k1_on_card(cuda_device, data, qvecs, grp_block, grp_cnt, 10, 256,
+                norms=norms)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_all_dead_groups(cuda_device):
+    data, qvecs, grp_block, grp_cnt, _, _ = _case(seed=10, g_total=64,
+                                                  br=512, n_blocks=8)
+    s, _ = _k1_on_card(cuda_device, data, qvecs, grp_block,
+                       np.zeros_like(grp_cnt), 10, 512)
+    assert bool(torch.isneginf(s).all())
+
+
+@pytest.mark.cuda
+def test_phase_build_gives_the_kernels_output(cuda_device):
+    """The fused kernel built with its phase counters
+    (``nlsh_tpu_torch.tools.topk_phases``) gives K1's and K3's output
+    bitwise, counts cycles in phases that sum to no more than all the
+    warps' cycles, and runs with the per-tile selection skipped."""
+    from nlsh_tpu_torch.tools import topk_phases
+
+    lib = topk_phases.build_library()
+    data, qvecs, grp_block, grp_cnt, norms, _ = _case(
+        seed=11, g_total=64, br=512, n_blocks=8)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (data, qvecs, grp_block, grp_cnt, norms)]
+    lo = (t[3] // 3).contiguous()
+    topk_phases.read_phases(lib)
+    for kk in (1, 10):
+        want = qk.grouped_scores_topk(*t[:4], kk, block_rows=512, norms=t[4])
+        got = topk_phases.launch(lib, *t[:3], None, t[3], kk, 512, norms=t[4])
+        want3 = qk.windowed_scores_topk(*t[:3], lo, t[3], kk, block_rows=512)
+        got3 = topk_phases.launch(lib, *t[:3], lo, t[3], kk, 512)
+        for (s, ln), (ws, wln) in ((got, want), (got3, want3)):
+            fin = torch.isfinite(ws)
+            assert torch.equal(s, ws)
+            assert torch.equal(ln[fin], wln[fin])
+    cycles = topk_phases.read_phases(lib, skip_select=True)
+    assert cycles["all"] > 0 and cycles["compute"] > 0 and cycles["select"] > 0
+    assert sum(cycles[k] for k in topk_phases.PHASES) <= cycles["all"]
+    topk_phases.launch(lib, *t[:3], None, t[3], 10, 512)
+    skipped = topk_phases.read_phases(lib)
+    assert 0 < skipped["all"]
+    assert 0 <= topk_phases.shares(skipped)["other"] < 1

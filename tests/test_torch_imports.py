@@ -28,8 +28,9 @@ def test_port_imports_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("ops.packing", "ops.distances", "ops.cuda.query_kernel",
-                 "ops.cuda.build", "models.encoders", "models.hashings",
+                 "ops.cuda.build", "ops.cuda.bounds", "models.encoders",
+                 "models.hashings",
                  "index.bucket_table", "index.indexer", "index.query",
                  "index.serving", "parallel", "parallel.multitable",
-                 "utils.checkpoint", "utils.metrics"):
+                 "utils.checkpoint", "utils.metrics", "tools.topk_phases"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]

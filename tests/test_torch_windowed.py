@@ -305,3 +305,113 @@ def test_k4_kernel_matches_plain(cuda_device, dtype):
     assert qk.KERNEL_LAUNCHES["windowed_scores"] == before + 1
     want = qk.windowed_scores_plain(*t, block_rows=512)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# -- the fused kernel's edge cases, on the card ------------------------------
+
+def _k3_on_card(dev, data, qvecs, win, lo, hi, kk, br, **extra):
+    """K3 and its plain version on the card; the kernel must launch once,
+    keep the plain version's -inf pattern and scores (1e-5) and its lanes
+    wherever the score is finite, inside each slot's [lo, hi).  Returns
+    the kernel's output."""
+    t = [torch.as_tensor(a).to(dev) for a in (data, qvecs, win, lo, hi)]
+    kw = dict(block_rows=br, **{k: torch.as_tensor(v).to(dev)
+                                for k, v in extra.items()})
+    before = qk.KERNEL_LAUNCHES["windowed_scores_topk"]
+    s, ln = qk.windowed_scores_topk(*t, kk, **kw)
+    assert qk.KERNEL_LAUNCHES["windowed_scores_topk"] == before + 1
+    ps, pln = qk.windowed_scores_topk_plain(*t, kk, **kw)
+    fin = torch.isfinite(ps)
+    assert torch.equal(torch.isfinite(s), fin)
+    if fin.any():
+        assert float((s - ps)[fin].abs().max()) <= 1e-5
+    assert torch.equal(ln[fin], pln[fin])
+    inside = (ln >= t[3][..., None]) & (ln < t[4][..., None])
+    assert bool(inside[fin].all())
+    return s, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kk", [1, 16])
+@pytest.mark.parametrize("G", [13, 32])
+@pytest.mark.parametrize("br,d_pad", [(1024, 256), (2048, 128), (8192, 128),
+                                     (512, 1280), (1024, 1280)])
+def test_k3_kernel_shapes(cuda_device, dtype, kk, G, br, d_pad):
+    """kk at both ends, a partial group width, 1024-row windows of 256
+    features, and the shapes the new footprint admits past what a (G, br)
+    score panel in shared memory allowed: 2048 and 8192 (the most) rows
+    of 128 features, and 1280 features (the most) at 512 and 1024 rows."""
+    data, qvecs, win, lo, hi, norms, scale = _kernel_case(
+        seed=5, g_total=40, G=G, br=br, d_pad=d_pad, n_windows=4,
+        dtype=str(dtype).split(".")[1])
+    _k3_on_card(cuda_device, torch.from_numpy(data).to(dtype), qvecs, win,
+                lo, hi, kk, br, norms=norms, scale_rows=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [1, 16])
+def test_k3_kernel_ties_across_tiles(cuda_device, kk):
+    """Exact ties in different 128-row tiles of a 512-row window, each
+    slot's range cutting some of them off: the lower lane first."""
+    br = 512
+    rng = np.random.default_rng(7)
+    data = np.zeros((br, 128), np.float32)
+    data[:, 1:] = rng.normal(size=(br, 127)) * 1e-3
+    data[[5, 130, 300, 450], 0] = 1.0
+    data[[7, 200, 511], 0] = 0.5
+    qvecs = np.zeros((16, 32, 128), np.float32)
+    qvecs[..., 0] = 1.0
+    lo = np.zeros((16, 32), np.int32)
+    hi = np.full((16, 32), br, np.int32)
+    lo[:, 0], hi[:, 0] = 100, 460
+    lo[:, 1], hi[:, 1] = 6, 201
+    s, ln = _k3_on_card(cuda_device, data, qvecs,
+                        np.zeros(16, np.int32), lo, hi, kk, br)
+    for slot, want in ((0, [130, 300, 450, 200]), (1, [130, 7, 200]),
+                       (2, [5, 130, 300, 450, 7, 200, 511])):
+        want = np.array(want)[:kk]
+        assert (ln[:, slot, :len(want)].cpu().numpy() == want).all()
+
+
+@pytest.mark.cuda
+def test_k3_kernel_scores_a_row_the_same_wherever_it_sits(cuda_device):
+    """One corpus row at lane 10 of window 0 and lane 300 of window 3
+    scores bit-identically in both (f32, with norms), as the ensemble's
+    dedupe needs of a row served by two tables."""
+    br = 512
+    rng = np.random.default_rng(8)
+    data = _unit(rng, (4 * br, 128)) * 0.5
+    row = _unit(rng, (128,))
+    data[[10, 3 * br + 300]] = row
+    qvecs = np.repeat(_unit(rng, (1, 32, 128)), 2, axis=0)
+    qvecs[:, 0] = row
+    lo = np.array([[8] * 32, [290] * 32], np.int32)
+    hi = np.array([[40] * 32, [310] * 32], np.int32)
+    s, ln = _k3_on_card(cuda_device, data, qvecs,
+                        np.array([0, 3], np.int32), lo, hi, 4, br,
+                        norms=np.full(4 * br, 0.25, np.float32))
+    assert ln[:, 0, 0].tolist() == [10, 300]
+    assert s[0, 0, 0] == s[1, 0, 0]
+
+
+@pytest.mark.cuda
+def test_k3_kernel_more_groups_than_its_grid(cuda_device):
+    """A window table several times the persistent grid, with dead groups
+    and empty slots among the live ones."""
+    per_sm = qk.topk_blocks_per_sm(torch.float32, 128, windowed=True)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert per_sm >= 2
+    g_total = 3 * per_sm * sms + 37
+    data, qvecs, win, lo, hi, norms, _ = _kernel_case(
+        seed=9, g_total=g_total, br=256, n_windows=32)
+    lo[::11] = hi[::11] = 0
+    _k3_on_card(cuda_device, data, qvecs, win, lo, hi, 10, 256, norms=norms)
+
+
+@pytest.mark.cuda
+def test_k3_kernel_all_dead_groups(cuda_device):
+    data, qvecs, win, lo, hi, _, _ = _kernel_case(seed=10, g_total=64,
+                                                  br=512, n_windows=8)
+    s, _ = _k3_on_card(cuda_device, data, qvecs, win, hi, lo, 10, 512)
+    assert bool(torch.isneginf(s).all())
