@@ -44,9 +44,13 @@ padded layout), ``bound_by`` says which, ``bound_share`` is bound over
 time; ``library_ms`` times one PyTorch call computing the same function
 where there is one (``torch.bmm``/``matmul`` on blocks gathered
 beforehand, for K2, K4 and K7), else it is null and ``library_note``
-says why.  The
-fused top-k kernel's resident blocks per SM are in ``kernel_times`` and
-``ensemble_kernel_times``.  Then one ``{"kernels": [...]}`` line and,
+says why.  K7's row also carries its own and ``matmul``'s device time
+(``torch.profiler`` device events), since at its size the event times
+are the host's.  The resident blocks per SM of the fused top-k kernel
+and of the raw-panel kernel are in ``kernel_times`` and
+``ensemble_kernel_times``, where f32 K2's panel must also equal K1's
+kept scores bit for bit at K1's lanes (and K4's K3's).  Then one
+``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  Needs no
 network and imports nothing of JAX.
@@ -199,6 +203,44 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls,
+    after one warm-up: the device-side events of ``torch.profiler``
+    (kernels and copies), without the host's launch time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CPU)
+    check(us > 0, "the profile saw no device time")
+    return us / reps / 1e3
+
+
+def _panel_is_topk(name: str, panel, topk, lay) -> bool | None:
+    """On an f32 layout with no norms or scales, the raw panel at the
+    fused kernel's kept lanes must equal its kept scores bit for bit
+    (one FMA chain per pair in both); True once checked, None where the
+    fused kernel's scores are scaled or biased and so not compared."""
+    import torch
+
+    if lay.data.dtype != torch.float32 or lay.norms is not None \
+            or lay.scale is not None:
+        return None
+    scores, lanes = topk
+    fin = torch.isfinite(scores)
+    check(bool(fin.any()) and bool(torch.equal(
+        panel.gather(2, lanes.long())[fin], scores[fin])),
+        f"{name}'s panel differs from the fused kernel's kept scores")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +544,14 @@ def phase_int8_probe():
         cuda_ms(lambda: qk.int8_block_scores_plain(*t, br), 20),
         bounds.panel_counts(t[0], t[1], t[2], nq, br, lane),
         cuda_ms(lambda: torch.matmul(t[1], blocks), 20), LIBRARY_K7)
+    # at this size the event times above are the host's launch time; the
+    # profiler's device events give the kernels' own
+    times["device_ms"] = device_ms(lambda: qk.int8_block_scores(*t, br), 20)
+    times["library_device_ms"] = device_ms(
+        lambda: torch.matmul(t[1], blocks), 20)
+    times["ms_note"] = ("ms, plain_ms and library_ms are CUDA-event times "
+                        "of 20 calls, host launch included; device_ms and "
+                        "library_device_ms are torch.profiler device time")
     emit("int8_probe", n_blocks=n_blocks, block_rows=br, nq=nq, bitwise=True,
          top10_agreement_int8_vs_f32=agree, launches=launches, **times)
     return launches, times
@@ -639,7 +689,8 @@ def _grouped_times(lay, q, pid, pv) -> dict:
     args = (lay.data, grp_qvecs, grp_block)
     kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
     out = {}
-    err = _topk_check("K1", qk.grouped_scores_topk(*args, grp_cnt, K, **kw),
+    k1 = qk.grouped_scores_topk(*args, grp_cnt, K, **kw)
+    err = _topk_check("K1", k1,
                       qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw))
     out["grouped_scores_topk"] = kernel_entry(
         err, cuda_ms(lambda: qk.grouped_scores_topk(*args, grp_cnt, K, **kw), 20),
@@ -647,9 +698,12 @@ def _grouped_times(lay, q, pid, pv) -> dict:
         bounds.topk_counts(*args, None, grp_cnt, K, lay.br, q.shape[1],
                            kw["norms"], kw["scale_rows"]),
         None, NO_LIBRARY_TOPK)
-    err = _panel_err("K2", qk.grouped_scores(*args, block_rows=lay.br),
+    panel = qk.grouped_scores(*args, block_rows=lay.br)
+    k2_is_k1 = _panel_is_topk("K2", panel, k1, lay)
+    err = _panel_err("K2", panel,
                      qk.grouped_scores_plain(*args, block_rows=lay.br), lay,
                      grp_block)
+    del panel, k1
     out["grouped_scores"] = kernel_entry(
         err, cuda_ms(lambda: qk.grouped_scores(*args, block_rows=lay.br), 20),
         cuda_ms(lambda: qk.grouped_scores_plain(*args, block_rows=lay.br), 3),
@@ -663,6 +717,9 @@ def _grouped_times(lay, q, pid, pv) -> dict:
             "live_slots": int((grp_cnt > 0).sum()),
             "topk_blocks_per_sm": qk.topk_blocks_per_sm(
                 lay.data.dtype, lay.d_pad, windowed=False),
+            "panel_blocks_per_sm": qk.panel_blocks_per_sm(lay.data.dtype,
+                                                          lay.d_pad),
+            "k2_panel_is_k1_scores_bitwise": k2_is_k1,
             "kernels": out}
 
 
@@ -684,16 +741,20 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
     topk = (grp_lo, grp_hi, K)
     kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
     out = {}
-    err = _topk_check("K3", qk.windowed_scores_topk(*args, *topk, **kw),
+    k3 = qk.windowed_scores_topk(*args, *topk, **kw)
+    err = _topk_check("K3", k3,
                       qk.windowed_scores_topk_plain(*args, *topk, **kw))
     out["windowed_scores_topk"] = kernel_entry(
         err, cuda_ms(lambda: qk.windowed_scores_topk(*args, *topk, **kw), 20),
         cuda_ms(lambda: qk.windowed_scores_topk_plain(*args, *topk, **kw), 3),
         bounds.topk_counts(*args, *topk, lay.br, q.shape[1], kw["norms"],
                            kw["scale_rows"]), None, NO_LIBRARY_TOPK)
-    err = _panel_err("K4", qk.windowed_scores(*args, block_rows=lay.br),
+    panel = qk.windowed_scores(*args, block_rows=lay.br)
+    k4_is_k3 = _panel_is_topk("K4", panel, k3, lay)
+    err = _panel_err("K4", panel,
                      qk.windowed_scores_plain(*args, block_rows=lay.br), lay,
                      grp_window)
+    del panel, k3
     out["windowed_scores"] = kernel_entry(
         err, cuda_ms(lambda: qk.windowed_scores(*args, block_rows=lay.br),
                      panel_reps),
@@ -708,6 +769,9 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
             "live_slots": int(live.sum()),
             "topk_blocks_per_sm": qk.topk_blocks_per_sm(
                 lay.data.dtype, lay.d_pad, windowed=True),
+            "panel_blocks_per_sm": qk.panel_blocks_per_sm(lay.data.dtype,
+                                                          lay.d_pad),
+            "k4_panel_is_k3_scores_bitwise": k4_is_k3,
             "kernels": out}
 
 
@@ -1243,9 +1307,11 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")
+    extra = ("device_ms", "library_device_ms", "ms_note")  # K7's
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **{k: times[name][k] for k in keys}}
+         "launches": launches[name], **{k: times[name][k] for k in keys},
+         **{k: times[name][k] for k in extra if k in times[name]}}
         for name, (replaces, src) in REPLACES.items()
     ]}), flush=True)
     check("jax" not in sys.modules, "jax was imported")

@@ -45,8 +45,12 @@ SOURCES = {
     },
     "grouped_scores.cu": {
         # dtype, qvecs, data, grp_block, out, g_total, G, d_pad, br,
-        # n_blocks, stream (K2, K4 on a window table, K7 on int8 blocks)
-        "nlsh_grouped_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # n_blocks, q_stride, stream (K2, K4 on a window table, K7 on int8
+        # blocks with q_stride 0)
+        "nlsh_grouped_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P],
+        # dtype, d_pad, out int* (resident blocks per SM)
+        "nlsh_panel_blocks_per_sm": [_I, _I, _P],
     },
     "bucket_scores.cu": {
         # dtype, queries, data, index, counts, out, n_events, n_probes,

@@ -75,13 +75,17 @@ KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
 
 # what the csrc kernels take; the wrappers check it before a launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # `dtype`
-_TILE = 128                # their kTileRows (and K2's kTileK)
+_TILE = 128                # block_rows and d_pad are multiples of this
 _MAX_G = 32                # their kMaxG
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may use on sm_90
 # grouped_topk.cu (K1, K3): its ring of kStages stages of 128 rows x
 # kRowStride bytes, kCap (score, lane) candidates per slot, and at most
 # kMaxTiles tiles of 128 rows per block
 _TOPK_STAGES, _TOPK_ROW_STRIDE, _TOPK_CAP, _TOPK_MAX_TILES = 2, 144, 64, 64
+# grouped_scores.cu (K2, K4, K7): its ring of kStages stages, each
+# kTileRows rows x kRowStride bytes (kStageBytes of each row) and the
+# same bytes' features of kMaxG f32 query rows
+_PANEL_STAGES, _PANEL_TILE_ROWS, _PANEL_STAGE_BYTES = 2, 256, 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -649,25 +653,29 @@ def _check(name: str, t: torch.Tensor, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def kernel_smem_bytes(d_pad: int, topk: bool) -> int:
+def kernel_smem_bytes(d_pad: int, topk: bool, dtype=torch.float32) -> int:
     """Dynamic shared memory of one block of the fused top-k kernel (K1,
     K3: the group's f32 query rows, the corpus ring and the slots'
     candidate buffers, whatever the block rows) or of the raw-panel
-    kernel (K2, K4, K7: the query rows and one f32 tile of 128 x 132
-    floats)."""
+    kernel (K2, K4, K7: a ring of stages, each 128 bytes of 256 corpus
+    rows of ``dtype``, padded to 144, and the same features of 32 f32
+    query rows, whatever the block rows and ``d_pad``)."""
     if topk:
         return (4 * _MAX_G * d_pad + _TOPK_STAGES * _TILE * _TOPK_ROW_STRIDE
                 + 8 * _MAX_G * _TOPK_CAP)
-    return 4 * (_MAX_G * d_pad + _TILE * (_TILE + 4))
+    feats = _PANEL_STAGE_BYTES // dtype.itemsize
+    return _PANEL_STAGES * (_PANEL_TILE_ROWS * (_PANEL_STAGE_BYTES + 16)
+                            + 4 * _MAX_G * feats)
 
 
-def launch_shape_error(d_pad: int, br: int, topk: bool) -> str | None:
+def launch_shape_error(d_pad: int, br: int, topk: bool,
+                       dtype=torch.float32) -> str | None:
     """Why the fused (``topk``) or raw-panel kernel cannot take blocks of
-    ``br`` rows of ``d_pad`` features, or None if it can."""
+    ``br`` rows of ``d_pad`` features of ``dtype``, or None if it can."""
     if br <= 0 or d_pad <= 0 or br % _TILE or d_pad % _TILE:
         return (f"block_rows={br} and d_pad={d_pad} must be multiples of "
                 f"{_TILE}")
-    smem = kernel_smem_bytes(d_pad, topk)
+    smem = kernel_smem_bytes(d_pad, topk, dtype)
     if smem > _SMEM_LIMIT:
         return (f"d_pad={d_pad} needs {smem} bytes of shared memory, over the "
                 f"{_SMEM_LIMIT} a block may use")
@@ -678,18 +686,24 @@ def launch_shape_error(d_pad: int, br: int, topk: bool) -> str | None:
 
 def _check_launch(data, grp_qvecs, grp_block, br: int, topk: bool):
     """Validate the common operands of a CUDA launch; returns the
-    shape numbers the kernel takes."""
+    shape numbers the kernel takes.  ``grp_qvecs`` is ``(g_total, G,
+    d_pad)``, or ``(G, d_pad)``: one query panel for every group."""
     if data.device.type != "cuda":
         raise ValueError(f"the scoring kernels run on CUDA tensors, got {data.device}")
     dev = data.device
     n_aligned, d_pad = data.shape
-    g_total, G, _ = grp_qvecs.shape
+    if grp_qvecs.dim() == 2:
+        g_total, G = grp_block.shape[0], grp_qvecs.shape[0]
+        q_shape = (G, d_pad)
+    else:
+        g_total, G = grp_qvecs.shape[:2]
+        q_shape = (g_total, G, d_pad)
     _check("data", data, tuple(_DTYPE_CODE), (n_aligned, d_pad), dev)
-    _check("grp_qvecs", grp_qvecs, (torch.float32,), (g_total, G, d_pad), dev)
+    _check("grp_qvecs", grp_qvecs, (torch.float32,), q_shape, dev)
     _check("grp_block", grp_block, (torch.int32,), (g_total,), dev)
     if not 1 <= G <= _MAX_G:
         raise ValueError(f"group width {G} outside [1, {_MAX_G}]")
-    why = launch_shape_error(d_pad, br, topk)
+    why = launch_shape_error(d_pad, br, topk, data.dtype)
     if why is None and (n_aligned % br or n_aligned == 0):
         why = (f"the layout's {n_aligned} rows must be a positive multiple of "
                f"block_rows={br} (block_rows and d_pad multiples of {_TILE})")
@@ -827,18 +841,35 @@ def windowed_scores(data, grp_qvecs, grp_window,
 
 def _launch_panels(data, grp_qvecs, grp_block, br: int,
                    name: str) -> torch.Tensor:
-    """Launch the raw-panel kernel (K2's, also K4's) on validated
-    operands."""
+    """Launch the raw-panel kernel (K2's, also K4's and K7's) on
+    validated operands: ``grp_qvecs`` ``(g_total, G, d_pad)``, or
+    ``(G, d_pad)`` for one query panel read by every group (a query
+    stride of 0 between groups)."""
     g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
                                                 br, topk=False)
+    q_stride = 0 if grp_qvecs.dim() == 2 else G * d_pad
     out = torch.empty((g_total, G, br), dtype=torch.float32, device=data.device)
     from nlsh_tpu_torch.ops.cuda.build import load_library
 
     err = load_library().nlsh_grouped_scores(
         _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
-        _ptr(out), g_total, G, d_pad, br, n_blocks, _stream(data.device))
+        _ptr(out), g_total, G, d_pad, br, n_blocks, q_stride,
+        _stream(data.device))
     _raise_on(err, name)
     return out
+
+
+def panel_blocks_per_sm(dtype, d_pad: int) -> int:
+    """Resident blocks per SM of the raw-panel kernel (K2, K4, K7) on the
+    current card for a layout ``dtype`` and ``d_pad`` (its footprint does
+    not grow with ``d_pad``); its persistent grid is this times the SM
+    count."""
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    out = ctypes.c_int(0)
+    _raise_on(load_library().nlsh_panel_blocks_per_sm(
+        _DTYPE_CODE[dtype], d_pad, ctypes.byref(out)), "panel_blocks_per_sm")
+    return out.value
 
 
 def int8_block_scores_plain(data, queries, block_ids,
@@ -855,15 +886,14 @@ def int8_block_scores(data, queries, block_ids,
     ``benchmarks/int8_probe.py``): each int8 block of ``block_rows`` rows
     named by ``block_ids``, upcast to f32 and dotted with the f32
     ``queries`` ``(nq, d_pad)``.  On the card this is K2's kernel on an
-    int8 layout with the query panel repeated for every block; it keeps
-    its own plain version and launch count.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    int8 layout, every block's group reading the one query panel (query
+    stride 0); it keeps its own plain version and launch count.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if data.dtype != torch.int8:
         raise ValueError(f"K7 scores int8 blocks, got {data.dtype}")
     if data.device.type == "cpu":
         return int8_block_scores_plain(data, queries, block_ids, block_rows)
-    qvecs = queries.expand(block_ids.shape[0], *queries.shape).contiguous()
-    out = _launch_panels(data, qvecs, block_ids, block_rows,
+    out = _launch_panels(data, queries, block_ids, block_rows,
                          "int8_block_scores")
     KERNEL_LAUNCHES["int8_block_scores"] += 1
     return out

@@ -40,7 +40,7 @@ def _case(seed=0, g_total=16, G=32, br=128, d_pad=128, n_blocks=6,
     grp_block = rng.integers(0, n_blocks, g_total).astype(np.int32)
     grp_cnt = rng.integers(0, br + 1, (g_total, G)).astype(np.int32)
     grp_cnt[3] = 0
-    grp_cnt[5, :6] = rng.integers(0, 10, 6)
+    grp_cnt[5, :6] = rng.integers(0, 10, min(G, 6))
     norms = rng.uniform(0.5, 1.5, n_blocks * br).astype(np.float32)
     scale = rng.uniform(0.5, 1.5, n_blocks * br).astype(np.float32)
     if int8_scale is not None:
@@ -170,6 +170,102 @@ def test_k2_kernel_matches_plain(cuda_device, dtype, G, d_pad):
     got = qk.grouped_scores(*t, block_rows=512)
     want = qk.grouped_scores_plain(*t, block_rows=512)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# -- the raw-panel kernel's edge cases, on the card --------------------------
+
+def _k2_on_card(dev, data, qvecs, grp_block, br):
+    """K2 and its plain version on the card; the kernel must launch once
+    and keep the plain version's panel within 1e-5.  Returns the
+    kernel's panel."""
+    t = [torch.as_tensor(a).to(dev) for a in (data, qvecs, grp_block)]
+    before = qk.KERNEL_LAUNCHES["grouped_scores"]
+    got = qk.grouped_scores(*t, block_rows=br)
+    assert qk.KERNEL_LAUNCHES["grouped_scores"] == before + 1
+    want = qk.grouped_scores_plain(*t, block_rows=br)
+    assert got.shape == want.shape == (t[1].shape[0], t[1].shape[1], br)
+    assert float((got - want).abs().max()) <= 1e-5
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("G", [1, 8, 13, 32])
+@pytest.mark.parametrize("br,d_pad", [(128, 128), (512, 128), (8192, 128),
+                                     (512, 1280)])
+def test_k2_kernel_shapes(cuda_device, dtype, G, br, d_pad):
+    """Group widths below one 16-slot warp (1, 8), inside the second (13)
+    and full; one 128-row tile (half of the kernel's 256), the serving
+    512, the most rows (8,192) and the most features (1,280)."""
+    data, qvecs, grp_block, _, _, _ = _case(
+        seed=12, g_total=24, G=G, br=br, d_pad=d_pad, n_blocks=3,
+        dtype=str(dtype).split(".")[1])
+    _k2_on_card(cuda_device, torch.from_numpy(data).to(dtype), qvecs,
+                grp_block, br)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_more_groups_than_its_grid(cuda_device):
+    """A group table several times the persistent grid (resident blocks
+    per SM x SMs), so each block walks many groups."""
+    per_sm = qk.panel_blocks_per_sm(torch.float32, 128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert per_sm >= 1
+    g_total = 3 * per_sm * sms + 37
+    data, qvecs, grp_block, _, _, _ = _case(seed=13, g_total=g_total,
+                                            br=256, n_blocks=32)
+    _k2_on_card(cuda_device, data, qvecs, grp_block, 256)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_writes_every_entry_of_a_dead_table(cuda_device):
+    """A table of only dead groups (block 0, zero queries, as the prep
+    leaves the groups past the live ones): every entry is written, here
+    into memory the caching allocator last held filled with NaN."""
+    g_total, G, br = 64, 32, 512
+    data = _unit(np.random.default_rng(14), (8 * br, 128))
+    poison = torch.full((g_total, G, br), torch.nan, device=cuda_device)
+    del poison
+    got = _k2_on_card(cuda_device, data, np.zeros((g_total, G, 128), np.float32),
+                      np.zeros(g_total, np.int32), br)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_k2_kernel_scores_a_block_the_same_in_every_group(cuda_device):
+    """One block named by many groups that are not neighbours (every
+    third group of a table longer than the grid), with the same queries:
+    the same panel, bit for bit, in each."""
+    per_sm = qk.panel_blocks_per_sm(torch.float32, 128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    g_total = per_sm * sms + 95
+    rng = np.random.default_rng(15)
+    data = _unit(rng, (6 * 512, 128))
+    qvecs = np.repeat(_unit(rng, (1, 32, 128)), g_total, axis=0)
+    grp_block = (np.arange(g_total) % 5 + 1).astype(np.int32)
+    grp_block[::3] = 0
+    got = _k2_on_card(cuda_device, data, qvecs, grp_block, 512)
+    same = got[::3]
+    assert torch.equal(same, same[:1].expand_as(same))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_k2_panel_is_k1s_scores_bitwise(cuda_device, dtype):
+    """K2's panel at K1's lanes is K1's kept scores, bit for bit (no
+    norms or scale): both run one FMA chain per (slot, row) over the
+    features in order."""
+    data, qvecs, grp_block, grp_cnt, _, _ = _case(
+        seed=16, g_total=64, br=512, n_blocks=8,
+        dtype=str(dtype).split(".")[1])
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (data, qvecs, grp_block, grp_cnt)]
+    t[0] = t[0].to(dtype)
+    panel = qk.grouped_scores(*t[:3], block_rows=512)
+    s, ln = qk.grouped_scores_topk(*t, qk.ROW_TOPK, block_rows=512)
+    fin = torch.isfinite(s)
+    assert fin.any()
+    assert torch.equal(panel.gather(2, ln.long())[fin], s[fin])
 
 
 @pytest.mark.cuda

@@ -32,5 +32,6 @@ def test_port_imports_no_jax():
                  "models.hashings",
                  "index.bucket_table", "index.indexer", "index.query",
                  "index.serving", "parallel", "parallel.multitable",
-                 "utils.checkpoint", "utils.metrics", "tools.topk_phases"):
+                 "utils.checkpoint", "utils.metrics", "tools.topk_phases",
+                 "tools.panel_variants"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]

@@ -266,3 +266,16 @@ def test_k7_kernel_matches_plain_bitwise():
     got = qk.int8_block_scores(*t, br)
     assert qk.KERNEL_LAUNCHES["int8_block_scores"] == before + 1
     assert torch.equal(got, qk.int8_block_scores_plain(*t, br))
+
+
+@pytest.mark.cuda
+def test_k7_one_query_panel_gives_the_copied_panels_bits():
+    """K7 reads its one query panel for every block (a query stride of 0);
+    K2's launch on the panel copied once per block gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    corpus_q, queries, block_ids, br = _probe_case()
+    t = [torch.from_numpy(a).cuda() for a in (corpus_q, queries, block_ids)]
+    copied = t[1].expand(t[2].shape[0], *t[1].shape).contiguous()
+    assert torch.equal(qk.int8_block_scores(*t, br),
+                       qk.grouped_scores(t[0], copied, t[2], block_rows=br))

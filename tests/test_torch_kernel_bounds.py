@@ -6,7 +6,8 @@
 * The fused top-k kernel's launch shapes: a pure function of its shared
   memory footprint, which takes every ``(block_rows, d_pad)`` the
   previous kernel (a ``(G, block_rows)`` score panel in shared memory)
-  took.
+  took; likewise the raw-panel kernel's (its ring does not grow with
+  either), and K7's wrapper on the CPU with its one query panel.
 * Plain K1 and K3 against the JAX package's Pallas kernels (interpret
   mode) on exact ties that lie in different 128-row tiles of a 512-row
   block: the lowest lane comes first, as within one tile.
@@ -192,9 +193,64 @@ def test_launch_shape_errors():
     assert "multiples" in qk.launch_shape_error(128, 64, topk=False)
     assert "shared memory" in qk.launch_shape_error(1408, 512, topk=True)
     assert "block_rows" in qk.launch_shape_error(128, 8192 + 128, topk=True)
-    # the raw-panel kernel keeps its footprint: 32 query rows and a tile
-    assert qk.kernel_smem_bytes(128, False) == 4 * (32 * 128 + 128 * 132)
+    # the raw-panel kernel's ring: two stages of 256 rows x 144 bytes and
+    # 32 query rows of the same 128 bytes' features (32 f32 ones)
+    assert qk.kernel_smem_bytes(128, False) == 2 * (256 * 144 + 32 * 32 * 4)
     assert qk.launch_shape_error(128, 8192 + 128, topk=False) is None
+
+
+def _old_panel_smem(d_pad):
+    """The previous raw-panel kernel's footprint: the 32 query rows and
+    one f32 tile of 128 x 132."""
+    return 4 * (32 * d_pad + 128 * 132)
+
+
+@pytest.mark.parametrize("d_pad", range(128, 1280 + 1, 128))
+def test_panel_kernel_takes_every_shape_it_took(d_pad):
+    """Every block_rows multiple of 128 up to 8,192 at each d_pad the old
+    kernel took, for every corpus dtype; the footprint grows with neither."""
+    assert _old_panel_smem(d_pad) <= 227 * 1024
+    for dtype, feats in ((torch.float32, 32), (torch.bfloat16, 64),
+                         (torch.int8, 128)):
+        assert qk.kernel_smem_bytes(d_pad, False, dtype) == \
+            2 * (256 * 144 + 32 * feats * 4)
+        for br in range(128, 8192 + 1, 128):
+            assert qk.launch_shape_error(d_pad, br, topk=False,
+                                         dtype=dtype) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_panel_shape_error_names_shared_memory_above_its_limit(monkeypatch,
+                                                               dtype):
+    need = qk.kernel_smem_bytes(512, False, dtype)
+    monkeypatch.setattr(qk, "_SMEM_LIMIT", need - 1)
+    why = qk.launch_shape_error(512, 512, topk=False, dtype=dtype)
+    assert "shared memory" in why and str(need) in why
+    monkeypatch.setattr(qk, "_SMEM_LIMIT", need)
+    assert qk.launch_shape_error(512, 512, topk=False, dtype=dtype) is None
+
+
+def test_k7_wrapper_on_the_cpu_takes_one_query_panel():
+    """K7's wrapper on CPU tensors: one ``(nq, d_pad)`` query panel for
+    every block (the kernel reads it with a query stride of 0) gives the
+    plain version's result, the panel dotted with each named block, and
+    launches nothing."""
+    rng = np.random.default_rng(3)
+    br, d_pad, nq = 128, 256, 5
+    data = rng.integers(-127, 128, (6 * br, d_pad)).astype(np.int8)
+    queries = rng.integers(-16, 17, (nq, d_pad)).astype(np.float32)
+    block_ids = np.array([4, 0, 4, 5, 2], np.int32)
+    before = dict(qk.KERNEL_LAUNCHES)
+    got = qk.int8_block_scores(torch.from_numpy(data),
+                               torch.from_numpy(queries),
+                               torch.from_numpy(block_ids), br)
+    assert qk.KERNEL_LAUNCHES == before
+    assert torch.equal(got, qk.int8_block_scores_plain(
+        torch.from_numpy(data), torch.from_numpy(queries),
+        torch.from_numpy(block_ids), br))
+    blocks = data.reshape(-1, br, d_pad)[block_ids].astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.einsum("qd,bkd->bqk", queries, blocks))
 
 
 # -- plain K1 / K3 vs Pallas on ties across 128-row tiles --------------------

@@ -307,6 +307,24 @@ def test_k4_kernel_matches_plain(cuda_device, dtype):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_k4_panel_is_k3s_scores_bitwise(cuda_device, dtype):
+    """K4's panel at K3's lanes is K3's kept scores, bit for bit (no
+    norms or scale), as the windowed engine's k > 16 branch and its
+    k <= 16 one must score a row alike."""
+    data, qvecs, win, lo, hi, _, _ = _kernel_case(
+        seed=11, g_total=64, br=512, n_windows=8,
+        dtype=str(dtype).split(".")[1])
+    t = [torch.from_numpy(a).to(cuda_device) for a in (data, qvecs, win, lo, hi)]
+    t[0] = t[0].to(dtype)
+    panel = qk.windowed_scores(*t[:3], block_rows=512)
+    s, ln = qk.windowed_scores_topk(*t, qk.ROW_TOPK, block_rows=512)
+    fin = torch.isfinite(s)
+    assert fin.any()
+    assert torch.equal(panel.gather(2, ln.long())[fin], s[fin])
+
+
 # -- the fused kernel's edge cases, on the card ------------------------------
 
 def _k3_on_card(dev, data, qvecs, win, lo, hi, kk, br, **extra):
