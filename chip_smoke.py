@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
-    python3 chip_smoke.py --profile  # also profile 3 ensemble serve passes
+    python3 chip_smoke.py --profile  # also profile the fixed-cap and the
+                                     # ensemble serve, 3 passes each
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
 power limit line), the kernel build (one ``nvcc`` per source, in
@@ -17,7 +18,10 @@ queries, recall@10 against the committed exact ground truth):
   engine (K1 at k=10, K2 at k=20; QPS), kernel times, engine parity, the
   same serve on the windowed engine (K3 at k=10, K4 at k=20), on the
   fixed-cap engine (K5; QPS, with K5/K6 times on the serve's own
-  events), and on the per-row int8 layout (grouped K1, fixed-cap K5,
+  events: the whole wrapper call, of which ``grouping_ms`` sorts the
+  events and ``kernel_ms`` is the launch; K5's live lanes bitwise equal
+  to K2's panel; and K5 at a table of 16 random distinct buckets per
+  query), and on the per-row int8 layout (grouped K1, fixed-cap K5,
   windowed K3, then one global-scale grouped serve; QPS and the int8
   times of K1-K4);
 * the L=8 ensemble (the committed 8-table params, 4 flip probes per
@@ -118,6 +122,12 @@ NO_LIBRARY_TOPK = ("none: no one PyTorch call computes a per-lane mask and "
 NO_LIBRARY_BUCKET = ("none: no one PyTorch call masks each event's lanes; a "
                      "batched product would first gather every event's cap "
                      "rows (42 GB at the serve's events)")
+# K5 of the commit before its redesign (one thread block per event), timed
+# by `python3 -m nlsh_tpu_torch.tools.fixed_events` in a checkout of that
+# commit, at the random-bucket table of `_fixed_times`
+PREVIOUS_K5_RANDOM_MS = {"torch.float32": 8.12, "torch.int8": 3.41}
+PREVIOUS_K5_NOTE = ("a constant, not of this run: NVIDIA H100 80GB HBM3, "
+                    "700 W, in one call with the redesigned kernel")
 LIBRARY_BMM = ("torch.bmm(grp_qvecs, blocks^T) on f32 blocks gathered before "
                "the timed region: the gather is left out, which flatters the "
                "library")
@@ -454,14 +464,66 @@ def _masked_err(name: str, got, want, exact: bool) -> float:
     return err
 
 
+def _quantised(rng, data: np.ndarray, nq: int):
+    """Per-row int8 rows of ``data`` and small dyadic queries: every sum
+    is exact in f32, so kernel and plain version compare bitwise."""
+    scale = np.abs(data).max(axis=1, keepdims=True) / 127.0
+    data = np.clip(np.round(data / scale), -127, 127).astype(np.int8)
+    q = (rng.integers(-16, 17, (nq, data.shape[1])) / 64.0).astype(np.float32)
+    return data, q
+
+
+def _schedule_cases(rng, dd, cap: int, exact: bool, worst: dict) -> int:
+    """K5 and K6 on the hard cases of the sorted-chunk schedule
+    (``nlsh_tpu_torch.tools.fixed_events.synthetic_events``: duplicate
+    events, one key across several chunks with different counts, nothing
+    to score, one event, a ragged last chunk, indices clamped at both
+    ends, K6 ranges that overlap without being equal) against their plain
+    versions; two launches must give identical bytes, and K6 must equal
+    K5 bitwise at block-exact starts.  Returns the number of cases."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools.fixed_events import synthetic_events
+
+    dev, d = dd.device, dd.shape[1]
+    cases = synthetic_events(3, dd.shape[0] // cap, cap)
+    for case in cases:
+        index, cnt = (torch.from_numpy(case[n]).to(dev)
+                      for n in ("index", "counts"))
+        nq = index.shape[0]
+        q = (rng.integers(-16, 17, (nq, d)) / 64.0).astype(np.float32) \
+            if exact else _unit_rows(rng, (nq, d))
+        tq = torch.from_numpy(q).to(dev)
+        k6 = case["stride"] == 1
+        name = "bucket_scores_impl" if k6 else "bucket_scores_auto"
+        kernel = qk.bucket_scores_impl if k6 else qk.bucket_scores_auto
+        plain = qk.bucket_scores_impl_plain if k6 else \
+            qk.bucket_scores_auto_plain
+        got = kernel(dd, tq, index, cnt, cap)
+        label = f"{'K6' if k6 else 'K5'} {case['name']} cap {cap} {dd.dtype}"
+        worst[name] = max(worst[name], _masked_err(
+            label, got, plain(dd, tq, index, cnt, cap), exact))
+        again = kernel(dd, tq, index, cnt, cap)
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"{label}: two launches differ")
+        if case["name"] == "block_exact":
+            check(torch.equal(
+                qk.bucket_scores_auto(dd, tq, index // cap, cnt, cap), got),
+                f"{label}: K6 differs from K5 on the same rows")
+    return len(cases)
+
+
 def phase_fixed_kernels() -> dict:
     """K5 and K6 vs their plain versions on synthetic events (cap 512,
     d_pad 128, 256 queries x 16 probes over 64 blocks) for f32, bf16
     and int8 corpora: counts of 0 (invalid probes), of cap and between,
-    every query probing the layout's last block, K6 at starts that are
-    multiples of 8 but not of cap, and K6 = K5 bitwise at block-exact
-    starts.  The int8 cases dot small dyadic queries, so every sum is
-    exact and they compare bitwise."""
+    every query probing the layout's last block (one key across 8 work
+    items), K6 at starts that are multiples of 8 but not of cap, and
+    K6 = K5 bitwise at block-exact starts; then the schedule's hard cases
+    (:func:`_schedule_cases`) at cap 512, d_pad 128 and at cap 200, d_pad
+    384.  The int8 cases dot small dyadic queries, so every sum is exact
+    and they compare bitwise."""
     import torch
 
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
@@ -470,14 +532,13 @@ def phase_fixed_kernels() -> dict:
     rng = np.random.default_rng(2)
     cap, d, n_blocks, nq, n_probes = 512, 128, 64, 256, 16
     worst = {"bucket_scores_auto": 0.0, "bucket_scores_impl": 0.0}
+    cases = 0
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         data = _unit_rows(rng, (n_blocks * cap, d))
         q = _unit_rows(rng, (nq, d))
         exact = dtype is torch.int8
         if exact:
-            scale = np.abs(data).max(axis=1, keepdims=True) / 127.0
-            data = np.clip(np.round(data / scale), -127, 127).astype(np.int8)
-            q = (rng.integers(-16, 17, (nq, d)) / 64.0).astype(np.float32)
+            data, q = _quantised(rng, data, nq)
         bidx = rng.integers(0, n_blocks, (nq, n_probes)).astype(np.int32)
         bidx[:, 0] = n_blocks - 1                    # the layout's tail
         cnt = rng.integers(1, cap, (nq, n_probes)).astype(np.int32)
@@ -494,9 +555,15 @@ def phase_fixed_kernels() -> dict:
         worst["bucket_scores_impl"] = max(worst["bucket_scores_impl"], _masked_err(
             "K6", qk.bucket_scores_impl(dd, tq, starts, tc, cap),
             qk.bucket_scores_impl_plain(dd, tq, starts, tc, cap), exact))
+        cases += 1 + _schedule_cases(rng, dd, cap, exact, worst)
+        wide = _unit_rows(rng, (9 * 200, 384))
+        if exact:
+            wide, _ = _quantised(rng, wide, 1)
+        cases += _schedule_cases(
+            rng, torch.from_numpy(wide).to(dev).to(dtype), 200, exact, worst)
     torch.cuda.synchronize()
-    emit("fixed_kernels", cases=3, max_abs_err=worst, score_tol=SCORE_TOL,
-         int8="bitwise")
+    emit("fixed_kernels", cases=cases, max_abs_err=worst, score_tol=SCORE_TOL,
+         int8="bitwise", two_launches="identical bytes")
     return worst
 
 
@@ -899,23 +966,54 @@ def phase_fixed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
     return launches
 
 
+def _k5_is_k2_panel(lay, qe, pid, pv, k5, counts) -> bool:
+    """K5's live lanes against K2's raw panel of the grouped prep of the
+    same probes on the same cap-aligned layout (cap = block_rows, one
+    block per event): the same (query, row) pairs, one fmaf chain over
+    the features in order in both kernels, so they must agree bit for
+    bit however the two kernels group the events."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    check(lay.cap == lay.br, "K5 = K2 is compared where cap = block_rows")
+    g_total = qk._round_up(qk.grouped_static_bound(
+        pid.numel(), 1, lay.total_blocks, 32), qk._GROUP_EB)
+    grp_block, grp_qvecs, _, ev_row, _, ev_valid = qk._grouped_prep_v2(
+        lay.starts, lay.counts, pid, pv, qe, lay.cap, g_total=g_total,
+        max_blocks=1, group_q=32, block_rows=lay.br)
+    panel = qk.grouped_scores(lay.data, grp_qvecs, grp_block,
+                              block_rows=lay.br)
+    rows = panel.view(-1, lay.br)[ev_row[:, 0].long()]
+    keep = torch.arange(lay.cap, device=k5.device) < counts.reshape(-1, 1)
+    check(bool((keep.any(dim=1) == ev_valid[:, 0]).all()),
+          "the grouped prep and the fixed-cap events disagree on live events")
+    check(bool(torch.equal(k5.reshape(-1, lay.cap)[keep], rows[keep])),
+          "K5's live lanes differ from K2's panel on the serve's events")
+    return True
+
+
 def _fixed_times(lay, q, pid, pv):
     """K5 and K6 and their plain versions on the fixed-cap events of the
     probes ``(pid, pv)`` on the cap-aligned ``lay``: K6 runs first, on the
     events by row offset (starts = block_idx * cap), and must equal K5
-    bitwise; scores are compared in dequantised units on a per-row int8
-    layout.  Returns K6's launch count, the times and the live rows."""
+    bitwise; K5's live lanes must equal K2's panel bitwise; scores are
+    compared with the plain version in dequantised units on a per-row
+    int8 layout.  A kernel's ``ms`` is the whole wrapper call (what the
+    serve pays): ``grouping_ms`` of it is the events' sort
+    (``_bucket_event_order``) and ``kernel_ms`` the launch alone.  Then
+    K5 at a table without hot buckets: every query probing 16 distinct
+    random buckets (seed 0).  Returns K6's launch count, the times and
+    the live rows."""
     import torch
 
     from nlsh_tpu_torch.ops.cuda import bounds
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools.fixed_events import (fixed_events,
+                                                   random_bucket_probes)
 
     qe = qk.extend_queries(lay, q)
-    safe, counts = qk._probe_counts(lay.counts, pid, pv, lay.cap)
-    counts = counts.to(torch.int32)
-    starts = torch.clamp(lay.starts[safe], max=lay.n_rows - lay.cap)
-    starts = starts.to(torch.int32)
-    block_idx = starts // lay.cap
+    block_idx, starts, counts = fixed_events(lay, pid, pv)
     five = (lay.data, qe, block_idx, counts, lay.cap)
     six = (lay.data, qe, starts, counts, lay.cap)
     reset_launches()
@@ -924,6 +1022,7 @@ def _fixed_times(lay, q, pid, pv):
     k5 = qk.bucket_scores_auto(*five)
     check(bool(torch.equal(k5, k6)), "K6 differs from K5 on the serve's events")
     del k6
+    is_k2 = _k5_is_k2_panel(lay, qe, pid, pv, k5, counts)
     p5 = qk.bucket_scores_auto_plain(*five)
     scale = _row_scale(lay)
     if scale is not None:
@@ -943,6 +1042,26 @@ def _fixed_times(lay, q, pid, pv):
             cuda_ms(lambda: qk.bucket_scores_impl_plain(*six), 3), counts5,
             None, NO_LIBRARY_BUCKET),
     }
+    for name, index, stride in (("bucket_scores_auto", block_idx, lay.cap),
+                                ("bucket_scores_impl", starts, 1)):
+        order_args = (index, counts, lay.cap, stride, lay.n_rows)
+        ordered = qk._bucket_event_order(*order_args)
+        out[name]["grouping_ms"] = cuda_ms(
+            lambda: qk._bucket_event_order(*order_args), 20)
+        out[name]["kernel_ms"] = cuda_ms(lambda: qk._launch_bucket_sorted(
+            lay.data, qe, *ordered, lay.cap, name), 20)
+        out[name]["k5_is_k2_panel_bitwise"] = is_k2
+    rid, rv = (torch.from_numpy(a).to(pid.device) for a in random_bucket_probes(
+        lay.counts.shape[0], pid.shape[0], pid.shape[1], 0))
+    r_block, r_starts, r_counts = fixed_events(lay, rid, rv)
+    out["bucket_scores_auto"]["random_buckets"] = {
+        "ms": cuda_ms(lambda: qk.bucket_scores_auto(
+            lay.data, qe, r_block, r_counts, lay.cap), 20),
+        "live_rows": int(r_counts.sum()),
+        "bound_ms": bounds.bound(bounds.bucket_counts(
+            lay.data, qe, r_starts, r_counts, lay.cap, q.shape[1]))["bound_ms"],
+        "previous_kernel_ms": PREVIOUS_K5_RANDOM_MS.get(str(lay.data.dtype)),
+        "previous_kernel_note": PREVIOUS_K5_NOTE}
     return launches, out, int(counts.sum())
 
 
@@ -951,13 +1070,15 @@ def phase_fixed_kernel_times(idx, queries: np.ndarray):
     events (the probes of all queries on the cap-aligned f32 layout).
     K6 has no caller in the JAX package: its path here is these events
     scored by row offset.  Returns the times and K6's launch count."""
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
     lay = idx.layout
     q, pid, pv = _probes(idx, queries)
     launches, out, live_rows = _fixed_times(lay, q, pid, pv)
-    gbs = {n: live_rows * lay.d_pad * lay.data.element_size() / v["ms"] / 1e6
-           for n, v in out.items()}
     emit("fixed_kernel_times", n_events=pid.numel(), cap=lay.cap,
-         d_pad=lay.d_pad, live_rows=live_rows, live_row_gb_per_s=gbs,
+         d_pad=lay.d_pad, live_rows=live_rows,
+         work_items=qk.bucket_work_items(pid.numel()),
+         bucket_blocks_per_sm=qk.bucket_blocks_per_sm(lay.data.dtype),
          k6_path="no caller in the JAX package; the serve's events by row "
                  "offset, bitwise equal to K5",
          k6_launches=launches, **out)
@@ -1164,24 +1285,26 @@ def phase_ensemble_kernel_times(midx, queries: np.ndarray) -> dict:
     return out
 
 
-def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
-    """``torch.profiler`` over 3 ensemble serve passes (``--profile``):
-    the unprofiled wall time per pass, the device time per pass, and the
-    costliest kernels and copies."""
+def _profile_passes(phase: str, serve, top: int) -> None:
+    """``torch.profiler`` over 3 passes of ``serve``: the unprofiled and
+    the profiled wall time per pass, the device time per pass, the
+    device's idle share of the profiled pass, and the costliest kernels
+    and copies."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
-    t0 = time.perf_counter()
-    for _ in range(3):
-        midx.query(queries, **kw)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    def passes():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            serve()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    passes()
+    wall_ms = passes()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            midx.query(queries, **kw)
-        torch.cuda.synchronize()
+        profiled_ms = passes()
     # device-side events only: an operator's own entry repeats the time
     # of the kernels it launched
     ops = [e for e in prof.key_averages()
@@ -1190,11 +1313,29 @@ def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
     ops.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in ops) / 3e3
     check(device_ms > 0, "the profile saw no device time")
-    emit("ensemble_profile", passes=3, wall_ms_per_pass=wall_ms,
-         device_ms_per_pass=device_ms,
+    emit(phase, passes=3, wall_ms_per_pass=wall_ms,
+         profiled_wall_ms_per_pass=profiled_ms, device_ms_per_pass=device_ms,
+         device_idle_share=1.0 - device_ms / profiled_ms,
          device_events_per_pass=sum(e.count for e in ops) / 3,
          top=[{"op": e.key[:80], "ms_per_pass": e.self_device_time_total / 3e3,
-               "calls_per_pass": e.count / 3} for e in ops[:15]])
+               "calls_per_pass": e.count / 3} for e in ops[:top]])
+
+
+def phase_fixed_profile(idx, queries: np.ndarray) -> None:
+    """``--profile``: 3 fixed-cap serve passes of the single table (f32)
+    under ``torch.profiler``: K5 (``bucket_kernel``), its grouping (the
+    160,000-key sort and the small ops before it), the flat stable sort
+    of the (10,000, 8,192) scores and the rest, by kernel name."""
+    idx.engine = "fixed"
+    _profile_passes("fixed_profile", lambda: idx.query(
+        queries, k=K, hash_times=HASH_TIMES, probe_mode="flip"), top=25)
+    idx.engine = "grouped"
+
+
+def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
+    """``--profile``: 3 ensemble serve passes under ``torch.profiler``."""
+    _profile_passes("ensemble_profile", lambda: midx.query(
+        queries, k=K, hash_times=MT_HASH_TIMES, probe_mode="flip"), top=15)
 
 
 def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
@@ -1267,7 +1408,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile 3 ensemble serve passes")
+                        help="also profile 3 fixed-cap and 3 ensemble serve "
+                             "passes")
     args = parser.parse_args()
     import bench  # fails, before any output, outside a checkout of the repo
     import nlsh_tpu_torch  # noqa: F401
@@ -1290,6 +1432,8 @@ def main() -> int:
     phase_parity(corpus, queries, idx, ids)
     launches.update(phase_windowed(idx, queries, gt, ids, n_cand))
     launches.update(phase_fixed(idx, queries, gt, ids, n_cand))
+    if args.profile:
+        phase_fixed_profile(idx, queries)
     fixed_times, k6_launches = phase_fixed_kernel_times(idx, queries)
     times.update(fixed_times)
     launches.update(k6_launches)

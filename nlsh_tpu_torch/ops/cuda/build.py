@@ -53,10 +53,13 @@ SOURCES = {
         "nlsh_panel_blocks_per_sm": [_I, _I, _P],
     },
     "bucket_scores.cu": {
-        # dtype, queries, data, index, counts, out, n_events, n_probes,
-        # cap, stride, d_pad, n_rows, stream (K5: stride cap; K6: 1)
-        "nlsh_bucket_scores": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # dtype, queries, data, order, first, counts, out, n_events,
+        # n_probes, cap, d_pad, n_rows, stream (K5 and K6: the events
+        # sorted by first row, and their first rows and counts so sorted)
+        "nlsh_bucket_scores": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _P],
+        # dtype, out int* (resident blocks per SM)
+        "nlsh_bucket_blocks_per_sm": [_I, _P],
     },
 }
 

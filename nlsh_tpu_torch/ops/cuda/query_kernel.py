@@ -32,9 +32,11 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   ``csrc/grouped_scores.cu``; K5 :func:`bucket_scores_auto`
   and K6 :func:`bucket_scores_impl`, the fixed-cap engine's masked
   per-event scores behind the entry :func:`bucket_scores`, in
-  ``csrc/bucket_scores.cu``.  Each has its plain PyTorch version beside
-  it (``*_plain``).  A wrapper runs the plain version only for tensors
-  on the CPU; on a CUDA tensor it launches its kernel or raises.
+  ``csrc/bucket_scores.cu`` (one kernel, on the events sorted by the
+  rows they read: :func:`_bucket_event_order`).  Each has its plain
+  PyTorch version beside it (``*_plain``).  A wrapper runs the plain
+  version only for tensors on the CPU; on a CUDA tensor it launches its
+  kernel or raises.
 
 Parity notes (where a port of this module breaks most easily):
 
@@ -86,6 +88,11 @@ _TOPK_STAGES, _TOPK_ROW_STRIDE, _TOPK_CAP, _TOPK_MAX_TILES = 2, 144, 64, 64
 # kTileRows rows x kRowStride bytes (kStageBytes of each row) and the
 # same bytes' features of kMaxG f32 query rows
 _PANEL_STAGES, _PANEL_TILE_ROWS, _PANEL_STAGE_BYTES = 2, 256, 128
+# bucket_scores.cu (K5, K6): kMaxG events of the sorted order per work
+# item; its ring is the raw-panel kernel's, beside two items' tables (7
+# ints per event and the stage count each) in static shared memory
+_BUCKET_G = 32
+_BUCKET_ITEM_BYTES = 2 * 4 * (7 * _BUCKET_G + 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -944,10 +951,60 @@ def bucket_scores_impl_plain(data, queries_ext, starts, counts,
     return _bucket_scores_plain(data, queries_ext, starts, counts, cap, 1)
 
 
+def _bucket_event_order(index, counts, cap: int, stride: int, n_rows: int):
+    """How the fixed-cap kernel groups its events, on any device and with
+    no host read.  An event's key is its first row, ``stride * index``
+    clamped into ``[0, n_rows - cap]`` (the rows the plain version
+    reads), or ``n_rows`` if its count is ``<= 0`` (it scores nothing).
+    Returns ``(order, first, counts)``, each ``(E,)`` i32: the events
+    sorted by key (stable), so events that read the same ``cap`` rows are
+    neighbours and those that score nothing come last, and the keys and
+    counts in that order.  The kernel cuts the order into
+    :func:`bucket_work_items` chunks of ``_BUCKET_G`` and reads a chunk's
+    run of equal first rows once for all the run's queries."""
+    counts = counts.reshape(-1)
+    first = torch.clamp(index.reshape(-1).long() * stride, 0, n_rows - cap)
+    key = torch.where(counts > 0, first, n_rows).to(torch.int32)
+    first, order = torch.sort(key, stable=True)
+    return order.to(torch.int32), first, counts[order]
+
+
+def bucket_work_items(n_events: int) -> int:
+    """Work items of one fixed-cap launch: ``_BUCKET_G`` consecutive
+    events of the sorted order each, whatever the events are."""
+    return -(-n_events // _BUCKET_G)
+
+
+def bucket_smem_bytes(dtype=torch.float32) -> int:
+    """Shared memory of one block of the fixed-cap kernel (K5, K6): the
+    raw-panel kernel's ring (whatever ``cap`` and ``d_pad``) and the work
+    item's table."""
+    return kernel_smem_bytes(_TILE, False, dtype) + _BUCKET_ITEM_BYTES
+
+
+def bucket_shape_error(d_pad: int, cap: int, n_rows: int,
+                       dtype=torch.float32) -> str | None:
+    """Why the fixed-cap kernel cannot take ``cap`` rows per event of a
+    layout of ``n_rows`` rows of ``d_pad`` features of ``dtype``, or None
+    if it can."""
+    if d_pad <= 0 or d_pad % _TILE or d_pad > 12288:
+        return f"d_pad={d_pad} must be a multiple of {_TILE} up to 12288"
+    if not 1 <= cap <= n_rows:
+        return f"cap={cap} must lie between 1 and the layout's {n_rows} rows"
+    if n_rows >= 2 ** 31:
+        return f"the layout's {n_rows} rows do not index with 32 bits"
+    smem = bucket_smem_bytes(dtype)
+    if smem > _SMEM_LIMIT:
+        return (f"{dtype} rows need {smem} bytes of shared memory, over the "
+                f"{_SMEM_LIMIT} a block may use")
+    return None
+
+
 def _launch_bucket(data, queries_ext, index, counts, cap: int, stride: int,
                    name: str) -> torch.Tensor:
     """Launch the fixed-cap kernel (K5's, also K6's) on validated
-    operands."""
+    operands: the events grouped by :func:`_bucket_event_order` (torch
+    ops on the card, no host read), then one launch."""
     if data.device.type != "cuda":
         raise ValueError(f"the scoring kernels run on CUDA tensors, got {data.device}")
     dev = data.device
@@ -957,20 +1014,46 @@ def _launch_bucket(data, queries_ext, index, counts, cap: int, stride: int,
     _check("queries_ext", queries_ext, (torch.float32,), (nq, d_pad), dev)
     _check("index", index, (torch.int32,), (nq, n_probes), dev)
     _check("counts", counts, (torch.int32,), (nq, n_probes), dev)
-    if d_pad % _TILE or d_pad * 4 > 48 * 1024 or not 1 <= cap <= n_rows:
-        raise ValueError(
-            f"d_pad={d_pad} must be a multiple of {_TILE} up to 12288, and "
-            f"cap={cap} between 1 and the layout's {n_rows} rows")
-    out = torch.empty((nq, n_probes, cap), dtype=torch.float32, device=dev)
+    why = bucket_shape_error(d_pad, cap, n_rows, data.dtype)
+    if why is not None:
+        raise ValueError(why)
+    return _launch_bucket_sorted(
+        data, queries_ext,
+        *_bucket_event_order(index, counts, cap, stride, n_rows), cap, name)
+
+
+def _launch_bucket_sorted(data, queries_ext, order, first, counts, cap: int,
+                          name: str) -> torch.Tensor:
+    """The fixed-cap kernel's launch proper, on the events as
+    :func:`_bucket_event_order` has sorted them (and
+    :func:`_launch_bucket` validated them)."""
+    nq = queries_ext.shape[0]
+    n_probes = order.numel() // nq
+    n_rows, d_pad = data.shape
+    out = torch.empty((nq, n_probes, cap), dtype=torch.float32,
+                      device=data.device)
     from nlsh_tpu_torch.ops.cuda.build import load_library
 
     err = load_library().nlsh_bucket_scores(
-        _DTYPE_CODE[data.dtype], _ptr(queries_ext), _ptr(data), _ptr(index),
-        _ptr(counts), _ptr(out), nq * n_probes, n_probes, cap, stride, d_pad,
-        n_rows, _stream(dev))
+        _DTYPE_CODE[data.dtype], _ptr(queries_ext), _ptr(data), _ptr(order),
+        _ptr(first), _ptr(counts), _ptr(out), nq * n_probes, n_probes, cap,
+        d_pad, n_rows, _stream(data.device))
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
     return out
+
+
+def bucket_blocks_per_sm(dtype) -> int:
+    """Resident blocks per SM of the fixed-cap kernel (K5, K6) on the
+    current card for a layout ``dtype`` (its footprint depends on neither
+    ``cap`` nor ``d_pad``); its persistent grid is this times the SM
+    count."""
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+
+    out = ctypes.c_int(0)
+    _raise_on(load_library().nlsh_bucket_blocks_per_sm(
+        _DTYPE_CODE[dtype], ctypes.byref(out)), "bucket_blocks_per_sm")
+    return out.value
 
 
 def bucket_scores_auto(data, queries_ext, block_idx, counts,
@@ -978,8 +1061,13 @@ def bucket_scores_auto(data, queries_ext, block_idx, counts,
     """K5, the fixed-cap engine's scorer (replaces ``_bucket_scores_auto``
     of the JAX package): ``(nq, P, cap)`` f32 scores of each (query,
     probe) event's cap-row block ``block_idx`` of a cap-aligned layout,
-    lanes ``>= counts`` ``-inf``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    lanes ``>= counts`` ``-inf``.  On the card the events are sorted by
+    the rows they read (:func:`_bucket_event_order`) and the kernel reads
+    a block once for up to 32 of the events that probe it; each score is
+    one ``fmaf`` chain over the features in order, bit-identical to K2's
+    panel entry of the same (query, block) where ``cap == block_rows``.
+    CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if data.device.type == "cpu":
         return bucket_scores_auto_plain(data, queries_ext, block_idx, counts,
                                         cap)
@@ -992,8 +1080,11 @@ def bucket_scores_impl(data, queries_ext, starts, counts,
     """K6 (replaces ``_bucket_scores_impl`` of the JAX package, which has
     no caller there): as :func:`bucket_scores_auto` with each event's
     block at row offset ``starts``; K5's kernel with a row stride of 1.
-    CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    Events are grouped by their clamped first row, so only events that
+    start at the same row share a read (ranges that merely overlap are
+    neighbours in the sort and meet in L2), and the scores are
+    bit-identical to K5's, and so to K2's, on the same rows.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if data.device.type == "cpu":
         return bucket_scores_impl_plain(data, queries_ext, starts, counts,
                                         cap)

@@ -28,6 +28,7 @@ from nlsh_tpu_torch.index import Indexer, build_bucket_table
 from nlsh_tpu_torch.index.serving import serving_query, serving_query_grouped
 from nlsh_tpu_torch.models import MLPEncoder, MultivariateBernoulli
 from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+from nlsh_tpu_torch.tools.fixed_events import synthetic_events
 from nlsh_tpu_torch.utils.checkpoint import params_from_jax
 
 CAP = 128
@@ -263,6 +264,127 @@ def test_indexer_fixed_matches_jax_pallas_engine(metric):
     assert (g_ids == t_ids).mean() >= 0.98
 
 
+# -- the kernel's schedule: events sorted by the rows they read -------------
+
+SCHED_CAP, SCHED_BLOCKS = 40, 7
+SCHED_CASES = ["mixed", "duplicates", "long_run", "all_dead", "one_event",
+               "ragged", "out_of_range", "overlap", "block_exact"]
+
+
+def _sched_case(name, cap=SCHED_CAP, n_blocks=SCHED_BLOCKS):
+    cases = {c["name"]: c for c in synthetic_events(5, n_blocks, cap)}
+    assert sorted(cases) == sorted(SCHED_CASES)
+    c = cases[name]
+    return (torch.from_numpy(c["index"]), torch.from_numpy(c["counts"]),
+            c["stride"] if c["stride"] == 1 else cap)
+
+
+@pytest.mark.parametrize("name", SCHED_CASES)
+def test_event_order_groups_events_by_clamped_first_row(name):
+    """``_bucket_event_order``: a permutation of the events, live ones
+    first and sorted by the first row the plain version reads (so equal
+    rows are neighbours, whatever the raw index), events that score
+    nothing after every live one; the launch's static work-item count
+    covers the order; no host read is needed for either."""
+    index, counts, stride = _sched_case(name)
+    n_rows = SCHED_BLOCKS * SCHED_CAP
+    order, keys, s_counts = qk._bucket_event_order(index, counts, SCHED_CAP,
+                                                   stride, n_rows)
+    n_ev = index.numel()
+    assert order.dtype == keys.dtype == s_counts.dtype == torch.int32
+    assert order.shape == keys.shape == s_counts.shape == (n_ev,)
+    assert sorted(order.tolist()) == list(range(n_ev))
+    so = order.long()
+    assert torch.equal(s_counts, counts.reshape(-1)[so])
+    first = torch.empty_like(keys)
+    first[so] = keys                          # each event's own key
+    live = counts.reshape(-1) > 0
+    want = torch.clamp(index.reshape(-1).long() * stride, 0,
+                       n_rows - SCHED_CAP)
+    assert torch.equal(first[live].long(), want[live])
+    assert (first[~live] == n_rows).all()
+    n_live = int(live.sum())
+    assert live[so[:n_live]].all() and not live[so[n_live:]].any()
+    assert (keys[1:] >= keys[:-1]).all()
+    # stable: equal keys keep the events' own order
+    same = keys[1:] == keys[:-1]
+    assert (so[1:] > so[:-1])[same].all()
+    # work items: chunks of the order; the scoring runs of every chunk hold
+    # live events only, and together all of them, each once
+    n_items = qk.bucket_work_items(n_ev)
+    assert n_items == -(-n_ev // qk._BUCKET_G)
+    scored = []
+    for item in range(n_items):
+        evs = so[item * qk._BUCKET_G:(item + 1) * qk._BUCKET_G]
+        scored += evs[live[evs]].tolist()
+    assert sorted(scored) == torch.nonzero(live).reshape(-1).tolist()
+    if name == "out_of_range":  # raw indices differ, the rows do not
+        assert index.min() < 0 and index.max() >= SCHED_BLOCKS
+        assert len(set(first[:4].tolist())) == 2
+    if name == "all_dead":
+        assert n_live == 0
+
+
+def _emulate_schedule(data, q, index, counts, cap, stride):
+    """The kernel's schedule in torch: per chunk of the sorted order, the
+    lanes from each event's count to ``cap`` get -inf; each run of equal
+    first rows reads its rows once, below the run's largest count, times
+    the run's queries; every slot keeps the lanes below its own count and
+    the result is scattered through the order.  Every element must be
+    written exactly once."""
+    nq, n_probes = index.shape
+    n_ev = nq * n_probes
+    order, keys, _ = qk._bucket_event_order(index, counts, cap, stride,
+                                            data.shape[0])
+    first = torch.empty_like(keys)
+    first[order.long()] = keys
+    cnt = counts.reshape(-1).clamp(0, cap).long()
+    out = torch.zeros((n_ev, cap))
+    writes = torch.zeros((n_ev, cap), dtype=torch.int32)
+    lane = torch.arange(cap)
+    for item in range(qk.bucket_work_items(n_ev)):
+        evs = order[item * qk._BUCKET_G:(item + 1) * qk._BUCKET_G].long()
+        fill = lane >= cnt[evs, None]
+        out[evs] = torch.where(fill, -torch.inf, out[evs])
+        writes[evs] += fill
+        live = evs[cnt[evs] > 0]
+        s = 0
+        while s < len(live):
+            f = int(first[live[s]])
+            e = s
+            while e < len(live) and int(first[live[e]]) == f:
+                e += 1
+            run = live[s:e]
+            rows = int(cnt[run].max())
+            block = data[f:f + rows].to(torch.float32)   # one read
+            sc = q[run // n_probes] @ block.T
+            keep = lane[:rows] < cnt[run, None]
+            out[run, :rows] = torch.where(keep, sc, out[run, :rows])
+            writes[run, :rows] += keep
+            s = e
+    assert (writes == 1).all()
+    return out.reshape(nq, n_probes, cap)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", SCHED_CASES)
+def test_schedule_emulation_matches_plain(name, dtype):
+    """Sorted order -> per-run rows x the run's queries -> scatter ->
+    per-slot mask gives the plain version's scores: bitwise on int8 rows
+    with dyadic queries (exact sums), within 1e-5 otherwise (another
+    summation order)."""
+    index, counts, stride = _sched_case(name)
+    rng = np.random.default_rng(6)
+    data = _torch(_rows(rng, SCHED_BLOCKS * SCHED_CAP, 128, dtype), dtype)
+    q = torch.from_numpy(_queries(rng, index.shape[0], 128, dtype))
+    got = _emulate_schedule(data, q, index, counts, SCHED_CAP, stride)
+    want = qk._bucket_scores_plain(data, q, index, counts, SCHED_CAP, stride)
+    _assert_scores(got.numpy(), want.numpy(), dtype)
+    fin = np.isfinite(want.numpy())
+    np.testing.assert_array_equal(
+        fin, np.arange(SCHED_CAP) < np.clip(counts.numpy(), 0, SCHED_CAP)[..., None])
+
+
 def test_fixed_wrappers_take_the_plain_version_only_on_the_cpu():
     data, q, block_idx, counts = _events(seed=3, nq=4)
     args = [torch.from_numpy(a) for a in (data, q, block_idx, counts)]
@@ -283,27 +405,66 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d_pad", [128, 384])
-def test_k5_k6_kernels_match_plain(cuda_device, dtype, d_pad):
-    data, q, block_idx, counts = _events(seed=4, nq=40, P=5, n_blocks=9,
-                                         d_pad=d_pad, dtype=dtype)
-    t = [torch.from_numpy(a).to(cuda_device) for a in (data, q, block_idx,
-                                                       counts)]
+@pytest.mark.parametrize("cap", [8, 200, 512, 1024])
+@pytest.mark.parametrize("d_pad", [128, 384, 1280, 12288])
+def test_k5_k6_kernels_match_plain(cuda_device, dtype, d_pad, cap):
+    n_blocks = 9 if d_pad <= 1280 else 5
+    rng = np.random.default_rng(4)
+    data = torch.from_numpy(_rows(rng, n_blocks * cap, d_pad, dtype)).to(
+        cuda_device).to(getattr(torch, dtype))
     before = dict(qk.KERNEL_LAUNCHES)
-    k5 = qk.bucket_scores_auto(*t, CAP)
-    k6 = qk.bucket_scores_impl(t[0], t[1], t[2] * CAP, t[3], CAP)
-    assert qk.KERNEL_LAUNCHES["bucket_scores_auto"] == \
-        before["bucket_scores_auto"] + 1
-    assert qk.KERNEL_LAUNCHES["bucket_scores_impl"] == \
-        before["bucket_scores_impl"] + 1
-    want = qk.bucket_scores_auto_plain(*t, CAP)
-    _assert_scores(k5.cpu().numpy(), want.cpu().numpy(), dtype)
-    assert torch.equal(k5, k6)
-    starts = (t[2] * CAP + 8 * (t[2] % 3)).clamp(max=data.shape[0] - CAP)
-    _assert_scores(qk.bucket_scores_impl(t[0], t[1], starts, t[3], CAP)
-                   .cpu().numpy(),
-                   qk.bucket_scores_impl_plain(t[0], t[1], starts, t[3], CAP)
-                   .cpu().numpy(), dtype)
+    launched = {"bucket_scores_auto": 0, "bucket_scores_impl": 0}
+    for case in synthetic_events(4, n_blocks, cap):
+        index, counts = (torch.from_numpy(case[n]).to(cuda_device)
+                         for n in ("index", "counts"))
+        q = torch.from_numpy(_queries(rng, index.shape[0], d_pad, dtype)).to(
+            cuda_device)
+        if case["stride"] == 1:
+            kernel, plain = qk.bucket_scores_impl, qk.bucket_scores_impl_plain
+        else:
+            kernel, plain = qk.bucket_scores_auto, qk.bucket_scores_auto_plain
+        got = kernel(data, q, index, counts, cap)
+        torch.cuda.synchronize()
+        launched[kernel.__name__] += 1
+        _assert_scores(got.cpu().numpy(),
+                       plain(data, q, index, counts, cap).cpu().numpy(), dtype)
+        again = kernel(data, q, index, counts, cap)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            f"{case['name']}: two launches differ"
+        launched[kernel.__name__] += 1
+        if case["name"] == "block_exact":   # K6 = K5 bitwise on the same rows
+            k5 = qk.bucket_scores_auto(data, q, index // cap, counts, cap)
+            launched["bucket_scores_auto"] += 1
+            assert torch.equal(k5, got)
+    for name, n in launched.items():
+        assert qk.KERNEL_LAUNCHES[name] == before[name] + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("br,d_pad", [(128, 128), (512, 128), (512, 384)])
+def test_k5_scores_are_k2_panel_rows_bitwise(cuda_device, dtype, br, d_pad):
+    """One fmaf chain per (query, row) over the features in order in both
+    kernels: K5's live lanes equal K2's panel rows bit for bit where
+    ``cap == block_rows``, however the events are grouped."""
+    rng = np.random.default_rng(10)
+    G, g_total, n_blocks = 13, 40, 11
+    data = torch.from_numpy(_rows(rng, n_blocks * br, d_pad, dtype)).to(
+        cuda_device).to(getattr(torch, dtype))
+    qvecs = torch.from_numpy(_unit(rng, (g_total, G, d_pad))).to(cuda_device)
+    grp_block = torch.from_numpy(
+        rng.integers(0, n_blocks, g_total).astype(np.int32)).to(cuda_device)
+    counts = torch.from_numpy(
+        rng.integers(0, br + 1, (g_total * G, 1)).astype(np.int32)).to(
+            cuda_device)
+    panel = qk.grouped_scores(data, qvecs, grp_block, block_rows=br)
+    k5 = qk.bucket_scores_auto(
+        data, qvecs.reshape(g_total * G, d_pad),
+        grp_block.repeat_interleave(G).reshape(-1, 1), counts, br)
+    keep = torch.arange(br, device=cuda_device) < counts
+    assert keep.any()
+    assert torch.equal(k5[:, 0][keep], panel.reshape(-1, br)[keep])
+    assert torch.isinf(k5[:, 0][~keep]).all()
 
 
 @pytest.mark.cuda

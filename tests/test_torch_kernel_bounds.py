@@ -230,6 +230,43 @@ def test_panel_shape_error_names_shared_memory_above_its_limit(monkeypatch,
     assert qk.launch_shape_error(512, 512, topk=False, dtype=dtype) is None
 
 
+@pytest.mark.parametrize("d_pad", range(128, 12288 + 1, 128))
+def test_bucket_kernel_takes_every_shape_it_took(d_pad):
+    """The fixed-cap kernel (K5, K6) took every ``d_pad`` multiple of 128
+    up to 12,288 (one f32 query row in 48 KB) at any ``1 <= cap <=
+    n_rows``, for every corpus dtype, and still does: its footprint, the
+    raw-panel kernel's ring and two work items' tables, grows with
+    neither and two blocks of it fit one SM's 227 KB."""
+    for dtype, feats in ((torch.float32, 32), (torch.bfloat16, 64),
+                         (torch.int8, 128)):
+        smem = qk.bucket_smem_bytes(dtype)
+        assert smem == 2 * (256 * 144 + 32 * feats * 4) + 2 * 4 * (7 * 32 + 1)
+        assert 2 * smem <= 227 * 1024
+        for cap, n_rows in ((1, 1), (8, 4096), (200, 1800), (512, 512),
+                            (1000, 2 ** 31 - 1)):
+            assert qk.bucket_shape_error(d_pad, cap, n_rows, dtype) is None
+
+
+def test_bucket_shape_errors(monkeypatch):
+    assert "multiple" in qk.bucket_shape_error(100, 8, 64)
+    assert "multiple" in qk.bucket_shape_error(0, 8, 64)
+    assert "12288" in qk.bucket_shape_error(12288 + 128, 8, 64)
+    assert "cap=0" in qk.bucket_shape_error(128, 0, 64)
+    assert "cap=65" in qk.bucket_shape_error(128, 65, 64)
+    assert "32 bits" in qk.bucket_shape_error(128, 8, 2 ** 31)
+    need = qk.bucket_smem_bytes(torch.int8)
+    monkeypatch.setattr(qk, "_SMEM_LIMIT", need - 1)
+    why = qk.bucket_shape_error(128, 8, 64, torch.int8)
+    assert "shared memory" in why and str(need) in why
+    assert qk.bucket_shape_error(128, 8, 64, torch.float32) is None
+
+
+@pytest.mark.parametrize("n_events,items", [(0, 0), (1, 1), (32, 1), (33, 2),
+                                            (111, 4), (160000, 5000)])
+def test_bucket_work_items_cover_the_events(n_events, items):
+    assert qk.bucket_work_items(n_events) == items
+
+
 def test_k7_wrapper_on_the_cpu_takes_one_query_panel():
     """K7's wrapper on CPU tensors: one ``(nq, d_pad)`` query panel for
     every block (the kernel reads it with a query stride of 0) gives the
