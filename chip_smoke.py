@@ -32,11 +32,41 @@ queries, recall@10 against the committed exact ground truth):
   engines, and the guard: after a starved calibration the same batch
   takes the static group bound and answers exactly as before.
 
+Then the serving process, on the same workload, each phase one line:
+
+* ``artifact``: the committed params written as model artifacts with the
+  port's ``save_model`` (single table, and 8 tables with ``n_tables``)
+  and loaded back: the loaded modules hash the corpus to the same ids;
+* ``persist``: ``Indexer.save`` / ``load`` and ``MultiTableIndexer.save``
+  / ``load``: CSR arrays bitwise, no ``hash_corpus`` call on the load,
+  ids and candidates equal to the first serve's, recall in its window,
+  ``build_s`` beside ``load_s`` and the file's bytes; a corpus with one
+  tail row changed is refused;
+* ``host_layout``: ``layout_mode="host"`` (numpy) against the layout
+  built on the card, f32 and per-row int8, with both build times;
+* ``ensemble_fixed`` and ``ensemble_int8``: the ensemble on the fixed-cap
+  engine (K5 from a new caller) and on the per-row int8 stacked layout
+  (K3), with the layouts' GiB;
+* ``updates``: 10,000 rows held back and added, 1,000 ids removed (the
+  serve then fetches k + 1,024 per query and runs K2, not K1), the
+  answers held to the plain serve and the gather engine, then
+  ``compact`` against an index built from scratch; pass times with the
+  buffer, with tombstones and after ``compact``;
+* ``heads``: a Categorical and a product-quantisation head with seeded
+  weights at the bench width over the first 262,144 rows, grouped
+  against gather; PQ flip probes distinct at 16 and 256 probes;
+* ``serve_cli``: ``nlsh_tpu_torch.cli.serve.main`` on the synthetic
+  dataset (build and save, then restore: the same answers), and
+  ``serve_loop`` on the restored full-size index with 200 requests and a
+  malformed line; its ``stats`` (QPS, latency p50 / p95 / max).
+
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
 k=20; K5: the fixed-cap serve; K6: the serve's events scored by row
 offset, since the JAX package has no caller of it; K7: the int8 probe).
+The serving-process phases reset and read the counts the same way; what
+they launched is each kernel's ``new_callers`` in the ``kernels`` line.
 
 Every kernel time comes with its plain version's, its bound and its
 yardstick: ``bound_ms`` is the larger of the bytes the call must move
@@ -66,6 +96,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -648,7 +679,7 @@ def phase_index(corpus: np.ndarray):
          max_bucket=idx.table.max_count(), buckets_used=idx.n_buckets_used(),
          n_buckets=idx.table.n_buckets, layout_rows=layout.n_rows,
          cap=layout.cap, block_rows=layout.br)
-    return idx
+    return idx, build_s
 
 
 def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
@@ -1196,7 +1227,7 @@ def phase_ensemble_index(corpus: np.ndarray):
          probe_budget=midx.probe_budget, cap=layout.cap, align=layout.align,
          block_rows=layout.br, layout_rows=layout.n_rows, layout_gib=gib,
          engine=midx.engine)
-    return midx
+    return midx, build_s
 
 
 def _flat_probes(midx, queries: np.ndarray):
@@ -1403,6 +1434,658 @@ def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
     return {"groups_calibrated": g_starved, "groups_needed": needed}
 
 
+# ---------------------------------------------------------------------------
+# the serving process: artifacts, persistence, updates, the other heads,
+# the CLI
+# ---------------------------------------------------------------------------
+
+# the L=8 ensemble on the per-row int8 stacked layout, windowed engine: the
+# port's plain serve on the CPU gives 0.93833 (tests/test_torch_full.py)
+MT_INT8_RECALL_RANGE = (0.9373, 0.9393)
+UPDATE_HELD_BACK = 10_000     # corpus rows added after the build
+UPDATE_REMOVED = 1_000        # ids tombstoned: k_eff = 10 + 1,024
+UPDATE_SAMPLE = 1_000         # queries held to the plain and gather serves
+HEAD_ROWS, HEAD_QUERIES, HEAD_PROBES = 262_144, 2_000, 4
+LOOP_REQUESTS, LOOP_MAX_BATCH = 200, 512
+
+
+class _CountedHashes:
+    """Counts the ``hash_corpus`` calls of both indexers inside a ``with``
+    block (a restored index must make none)."""
+
+    def __enter__(self):
+        from nlsh_tpu_torch.index import indexer
+        from nlsh_tpu_torch.parallel import multitable
+
+        self.calls, self._saved = 0, []
+        for mod in (indexer, multitable):
+            real = mod.hash_corpus
+            self._saved.append((mod, real))
+
+            def counted(*a, _real=real, **kw):
+                self.calls += 1
+                return _real(*a, **kw)
+
+            mod.hash_corpus = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, real in self._saved:
+            mod.hash_corpus = real
+
+
+def _codes(hashing, corpus_t):
+    from nlsh_tpu_torch.index import hash_corpus
+
+    return hash_corpus(hashing.to(DEVICE).eval(), corpus_t)
+
+
+def phase_artifact(corpus: np.ndarray, tmp: str) -> None:
+    """The committed params as model artifacts of the port
+    (``save_model`` / ``load_model``, single table and ``n_tables`` = 8):
+    the loaded modules hash the corpus to the very same bucket ids."""
+    import torch
+
+    from nlsh_tpu_torch.utils.checkpoint import (
+        load_model, model_config, save_model,
+    )
+
+    corpus_t = torch.as_tensor(corpus, device=DEVICE)
+    out = {}
+    for name, loaded in (("single", load_hashing()), ("t8", load_ensemble())):
+        base = os.path.join(tmp, f"model_{name}")
+        t0 = time.perf_counter()
+        save_model(base, loaded)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_model(base, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        many = isinstance(loaded, list)
+        check(isinstance(back, list) == many, f"{name}: one module or a list")
+        check(model_config(base).get("n_tables") == (8 if many else None),
+              f"{name}: n_tables in the JSON")
+        pairs = list(zip(loaded, back)) if many else [(loaded, back)]
+        for want, got in pairs:
+            check(bool(torch.equal(_codes(want, corpus_t),
+                                   _codes(got, corpus_t))),
+                  f"{name}: the loaded model hashes the corpus differently")
+        out[name] = {"tables": len(pairs), "save_s": save_s, "load_s": load_s,
+                     "json_bytes": os.path.getsize(base + ".json"),
+                     "msgpack_bytes": os.path.getsize(base + ".msgpack"),
+                     "bucket_ids_equal": True}
+    emit("artifact", n_rows=int(corpus.shape[0]), **out)
+
+
+def _refuses_changed_tail(load, corpus: np.ndarray) -> bool:
+    changed = corpus.copy()
+    changed[-1] += 0.5
+    try:
+        load(changed)
+    except ValueError as e:
+        return "different corpus" in str(e)
+    return False
+
+
+def phase_persist(idx, midx, corpus, queries, gt, single, ensemble,
+                  tmp: str):
+    """``save`` then ``load`` of the single table and of the ensemble with
+    the same corpus: CSR arrays bitwise, no ``hash_corpus`` call, the
+    serve's ids and candidates equal to the first serve's, recall in its
+    window, a corpus with one tail row changed refused.  ``single`` and
+    ``ensemble`` are ``(ids, n_candidates, build_s)`` of the built
+    indexes.  Returns the restored single-table ``Indexer`` and the
+    launch counts of the two restored serves."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    out = {}
+    # -- the single table
+    path = os.path.join(tmp, "index")          # np.savez appends .npz
+    t0 = time.perf_counter()
+    idx.save(path)
+    save_s = time.perf_counter() - t0
+    check(os.path.exists(path + ".npz"), "save appends .npz")
+    hashing = load_hashing()
+    with _CountedHashes() as hashes:
+        t0 = time.perf_counter()
+        back = Indexer.load(path + ".npz", hashing, corpus, device=DEVICE)
+        _ = back.layout
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(hashes.calls == 0, f"load hashed the corpus {hashes.calls} times")
+    for name in ("row_ids", "starts", "counts"):
+        check(bool(torch.equal(getattr(back.table, name),
+                               getattr(idx.table, name))), f"restored {name}")
+    check((back.engine, back.probe_budget, back.metric) ==
+          (idx.engine, idx.probe_budget, idx.metric), "restored knobs")
+    reset_launches()
+    ids, n_cand = back.query(queries, k=K, hash_times=HASH_TIMES,
+                             probe_mode="flip")
+    launches = read_launches("grouped_scores_topk")
+    check(bool(np.array_equal(ids, single[0])), "restored serve: ids differ")
+    check(bool(np.array_equal(n_cand, single[1])),
+          "restored serve: n_candidates differ")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
+          f"restored recall@10 {recall} outside {RECALL_RANGE}")
+    check(_refuses_changed_tail(
+        lambda c: Indexer.load(path + ".npz", hashing, c, device=DEVICE),
+        corpus), "a corpus with one tail row changed was not refused")
+    out["single"] = {"build_s": single[2], "save_s": save_s, "load_s": load_s,
+                     "file_bytes": os.path.getsize(path + ".npz"),
+                     "hash_corpus_calls_on_load": 0, "csr_bitwise": True,
+                     "ids_equal": True, "n_candidates_equal": True,
+                     "recall_at_10": recall, "changed_tail_refused": True,
+                     "launches": launches}
+
+    # -- the ensemble
+    path = os.path.join(tmp, "ensemble")
+    t0 = time.perf_counter()
+    midx.save(path)
+    save_s = time.perf_counter() - t0
+    hashings = load_ensemble()
+    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    with _CountedHashes() as hashes:
+        t0 = time.perf_counter()
+        mback = MultiTableIndexer.load(path + ".npz", hashings, corpus,
+                                       device=DEVICE)
+        mback._serving_layout()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(hashes.calls == 0, f"load hashed the corpus {hashes.calls} times")
+    for name in ("row_ids", "starts", "counts"):
+        check(bool(torch.equal(getattr(mback, name), getattr(midx, name))),
+              f"restored ensemble {name}")
+    check(mback.engine == "windowed" and mback.n_tables == midx.n_tables,
+          "restored ensemble knobs")
+    mback.calibrate(queries, **kw)
+    reset_launches()
+    ids, n_cand = mback.query(queries, k=K, **kw)
+    launches = read_launches("windowed_scores_topk")
+    check(bool(np.array_equal(ids, ensemble[0])),
+          "restored ensemble serve: ids differ")
+    check(bool(np.array_equal(n_cand, ensemble[1])),
+          "restored ensemble serve: n_candidates differ")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    size = float(mback.exact_query_size(queries, **kw).mean())
+    check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
+          f"restored ensemble recall@10 {recall} outside {MT_RECALL_RANGE}")
+    check(MT_N_CAND_RANGE[0] <= mean_cand <= MT_N_CAND_RANGE[1]
+          and MT_QUERY_SIZE_RANGE[0] <= size <= MT_QUERY_SIZE_RANGE[1],
+          f"restored ensemble candidates {mean_cand} / {size}")
+    check(_refuses_changed_tail(
+        lambda c: MultiTableIndexer.load(path + ".npz", hashings, c,
+                                         device=DEVICE), corpus),
+        "ensemble: a corpus with one tail row changed was not refused")
+    out["ensemble"] = {"build_s": ensemble[2], "save_s": save_s,
+                       "load_s": load_s,
+                       "file_bytes": os.path.getsize(path + ".npz"),
+                       "hash_corpus_calls_on_load": 0, "csr_bitwise": True,
+                       "ids_equal": True, "n_candidates_equal": True,
+                       "recall_at_10": recall, "mean_n_candidates": mean_cand,
+                       "mean_exact_query_size": size,
+                       "changed_tail_refused": True, "launches": launches}
+    del mback
+    emit("persist", **out)
+    return back, {**out["single"]["launches"], **out["ensemble"]["launches"]}
+
+
+def phase_host_layout(idx, queries: np.ndarray, ids, n_cand) -> None:
+    """``layout_mode="host"`` (numpy on the host, finished arrays
+    shipped) against the layout built on the card, f32 and per-row int8:
+    the integer arrays bitwise; the rows bitwise, or, where the host's
+    and the card's f32 row norms round differently, within one f32 step
+    (one int8 step) on the share of elements printed; the serve's
+    candidates equal and ids >= 0.999."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("int8", torch.int8)):
+        built = {}
+        for mode in ("device", "host"):
+            one = Indexer(idx.hashing, idx.corpus, device=DEVICE,
+                          metric=idx.metric, probe_budget=CAP,
+                          serving_dtype=dtype, layout_mode=mode,
+                          table=idx.table)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lay = one.layout
+            torch.cuda.synchronize()
+            built[mode] = (one, lay, time.perf_counter() - t0)
+        dev, host = built["device"][1], built["host"][1]
+        for field in ("row_map", "starts", "counts"):
+            check(bool(torch.equal(getattr(host, field), getattr(dev, field))),
+                  f"host layout {name}: {field}")
+        check((host.cap, host.align, host.d_pad, host.total_blocks, host.br)
+              == (dev.cap, dev.align, dev.d_pad, dev.total_blocks, dev.br),
+              f"host layout {name}: geometry")
+        check(host.data.dtype == dev.data.dtype == dtype
+              and host.data.device == dev.data.device,
+              f"host layout {name}: dtype and device")
+        a, b = host.data, dev.data
+        differ = float((a != b).float().mean())
+        if dtype == torch.int8:
+            step = int((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+            check(step <= 1 and differ < 1e-3,
+                  f"host int8 layout: {differ} of bytes differ, by {step}")
+            s_err = float((host.scale - dev.scale).abs().max()
+                          / dev.scale.abs().max())
+            check(s_err <= 1e-6, f"host int8 scales differ by {s_err}")
+        else:
+            step = float((a - b).abs().max())
+            check(step <= 2.0 ** -23, f"host f32 layout differs by {step}")
+        h_ids, h_cand = built["host"][0].query(
+            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip")
+        check(bool(np.array_equal(h_cand, n_cand)),
+              f"host layout {name}: n_candidates differ")
+        want = ids if dtype == torch.float32 else built["device"][0].query(
+            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip")[0]
+        agree = id_agreement(want, h_ids)
+        check(agree >= 0.999, f"host layout {name}: ids {agree} < 0.999")
+        out[name] = {"device_build_s": built["device"][2],
+                     "host_build_s": built["host"][2],
+                     "rows_bitwise": differ == 0.0,
+                     "differing_share": differ, "max_step": step,
+                     "ids_vs_device_layout": agree,
+                     "layout_gib": a.numel() * a.element_size() / 2 ** 30}
+        del built
+    emit("host_layout", layout_rows=idx.layout.n_rows, **out)
+
+
+def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
+    """Inserts and deletes on the running index: the last 10,000 corpus
+    rows held back at build and then added, 1,000 ids removed (half of
+    them among the queries' current answers, some in the buffer).  With
+    1,000 tombstones the engine fetches k + 1,024 per query, so the
+    grouped serve leaves K1 for the raw panels: K2 must launch.  On 1,000
+    queries the answers are held to the plain serve and to the gather
+    engine (an exact rerank of the probed rows and the buffer).  After
+    ``compact`` the answers equal an index built from scratch over the
+    full corpus with the removed rows' codes set to the sentinel."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer, build_bucket_table, hash_corpus
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    n0 = corpus.shape[0] - UPDATE_HELD_BACK
+    idx = Indexer(load_hashing(), corpus[:n0], device=DEVICE, metric="cosine",
+                  probe_budget=CAP)
+    _ = idx.layout
+    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+
+    def serve():
+        return idx.query(queries, **kw)
+
+    base_ids, base_cand = serve()
+    idx.add(corpus[n0:n0 + 4_000])
+    idx.add(corpus[n0 + 4_000:])
+    check(idx.n_fresh == UPDATE_HELD_BACK, "n_fresh")
+    ids_a, cand_a = serve()
+    check(bool((cand_a == base_cand + UPDATE_HELD_BACK).all()),
+          "n_candidates grows by the buffer's length")
+    fresh_share = float((ids_a >= n0).mean())
+    check(fresh_share > 0, "no buffered row is among the answers")
+    recall_a = float(calculate_recall(gt[:, :K], ids_a, np.mean))
+    check(recall_a >= RECALL_RANGE[0], f"recall with the buffer {recall_a}")
+    with_buffer = _timed_passes(serve, 3)
+
+    rng = np.random.default_rng(7)
+    answered = np.unique(ids_a[ids_a >= 0])
+    dead = np.unique(np.concatenate([
+        rng.choice(answered, UPDATE_REMOVED // 2, replace=False),
+        rng.choice(n0, UPDATE_REMOVED * 2 // 5, replace=False),
+        n0 + rng.choice(UPDATE_HELD_BACK, UPDATE_REMOVED // 10,
+                        replace=False)]))
+    while dead.size < UPDATE_REMOVED:
+        dead = np.unique(np.concatenate(
+            [dead, rng.choice(n0, UPDATE_REMOVED - dead.size)]))
+    dead = dead.astype(np.int32)
+    idx.remove(dead[:UPDATE_REMOVED * 3 // 5])
+    idx.remove(dead[UPDATE_REMOVED // 2:])       # overlapping calls: a union
+    check(idx.n_deleted == UPDATE_REMOVED, "n_deleted")
+    k_eff = K + (1 << (UPDATE_REMOVED - 1).bit_length())
+
+    reset_launches()
+    ids_r, cand_r = serve()
+    launches = read_launches("grouped_scores")
+    check(qk.KERNEL_LAUNCHES["grouped_scores_topk"] == 0,
+          "the tombstone serve fetches k_eff > 16 per block: K2, not K1")
+    check(ids_r.shape == (queries.shape[0], K), "tombstone serve shape")
+    check(not bool(np.isin(ids_r, dead).any()), "a removed id was answered")
+    check(bool((cand_r == cand_a).all()),
+          "n_candidates counts tombstoned candidates until compact")
+    in_answers = int(np.isin(dead, answered).sum())
+    in_buffer = int((dead >= n0).sum())
+    changed = float((ids_r != ids_a).any(axis=1).mean())
+    with_tombstones = _timed_passes(serve, 3)
+
+    sample = rng.choice(queries.shape[0], UPDATE_SAMPLE, replace=False)
+    qs = queries[sample]
+    k_ids, k_cand = idx.query(qs, **kw)
+    p_ids, p_cand = idx.query(qs, plain=True, **kw)
+    check(bool(np.array_equal(k_cand, p_cand))
+          and bool(np.array_equal(k_cand, cand_r[sample])),
+          "tombstone serve: n_candidates vs the plain serve")
+    vs_plain = id_agreement(p_ids, k_ids)
+    check(vs_plain >= 0.999, f"tombstone serve vs plain {vs_plain} < 0.999")
+    vs_full = id_agreement(ids_r[sample], k_ids)
+    check(vs_full >= 0.999, f"the sample served alone {vs_full} < 0.999")
+    idx.engine = "gather"
+    g_ids, g_cand = idx.query(qs, **kw)
+    idx.engine = "grouped"
+    check(bool(np.array_equal(g_cand, k_cand)), "gather n_candidates")
+    vs_gather = id_agreement(g_ids, k_ids)
+    check(vs_gather >= 0.98, f"tombstone serve vs gather {vs_gather} < 0.98")
+    check(not bool(np.isin(g_ids, dead).any())
+          and not bool(np.isin(p_ids, dead).any()), "references hold dead ids")
+
+    t0 = time.perf_counter()
+    idx.compact()
+    _ = idx.layout
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    check(idx.n_fresh == 0 and idx.n_deleted == 0
+          and idx.corpus.shape[0] == corpus.shape[0]
+          and idx.probe_budget == CAP, "state after compact")
+    check(int(idx.table.counts.sum()) == corpus.shape[0] - UPDATE_REMOVED,
+          "compact drops exactly the removed rows")
+    reset_launches()
+    ids_c, cand_c = serve()
+    launches_c = read_launches("grouped_scores_topk")
+    check(not bool(np.isin(ids_c, dead).any()),
+          "a removed id was answered after compact")
+    codes = hash_corpus(idx.hashing, idx.corpus)
+    codes[torch.from_numpy(dead).to(DEVICE).long()] = idx.hashing.n_buckets
+    scratch = Indexer(idx.hashing, corpus, device=DEVICE, metric="cosine",
+                      probe_budget=CAP,
+                      table=build_bucket_table(codes, idx.hashing.n_buckets))
+    s_ids, s_cand = scratch.query(queries, **kw)
+    check(bool(np.array_equal(s_ids, ids_c))
+          and bool(np.array_equal(s_cand, cand_c)),
+          "after compact: not the index built from scratch")
+    # not a check: the buffer was scanned whole, the table is only probed
+    vs_tomb = id_agreement(ids_r, ids_c)
+    recall_c = float(calculate_recall(gt[:, :K], ids_c, np.mean))
+    after_compact = _timed_passes(serve, 3)
+    emit("updates", n_rows_at_build=n0, added=UPDATE_HELD_BACK,
+         removed=UPDATE_REMOVED, removed_among_answers=in_answers,
+         removed_in_buffer=in_buffer, k_eff=k_eff,
+         answers_from_buffer_share=fresh_share,
+         queries_changed_by_removes=changed,
+         recall_with_buffer=recall_a, recall_after_compact=recall_c,
+         sample_queries=UPDATE_SAMPLE, vs_plain=vs_plain,
+         vs_gather=vs_gather, sample_vs_full_batch=vs_full,
+         compact_vs_tombstones=vs_tomb, compact_equals_scratch=True,
+         launches_tombstones=launches, launches_after_compact=launches_c,
+         compact_s=compact_s, serve_median_s=serve_median_s,
+         with_buffer=with_buffer, with_tombstones=with_tombstones,
+         after_compact=after_compact)
+    return launches
+
+
+def phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand):
+    """The L=8 ensemble on the fixed-cap engine (K5; ids >= 0.999 against
+    the windowed serve, summed candidates equal), then on the per-row
+    int8 stacked layout, windowed engine (K3; recall in the window of the
+    port's plain serve on the CPU).  Returns the launch counts of the
+    two serves."""
+    import torch
+
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+
+    def serve():
+        return midx.query(queries, k=K, **kw)
+
+    def layout_of():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = midx._serving_layout()
+        torch.cuda.synchronize()
+        gib = lay.data.numel() * lay.data.element_size() / 2 ** 30
+        return lay, time.perf_counter() - t0, gib
+
+    f32_gib = layout_of()[2]                      # the windowed f32 layout
+    midx.engine = "fixed"
+    lay, build_s, gib = layout_of()
+    check(lay.align == lay.cap, "the fixed-cap layout is cap-aligned")
+    reset_launches()
+    ids, n_cand = serve()
+    launches = read_launches("bucket_scores_auto")
+    check(bool(np.array_equal(n_cand, mt_cand)),
+          "ensemble fixed-cap: summed n_candidates differ")
+    agree = id_agreement(mt_ids, ids)
+    check(agree >= 0.999, f"ensemble fixed-cap vs windowed {agree} < 0.999")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
+          f"ensemble fixed-cap recall@10 {recall} outside {MT_RECALL_RANGE}")
+    timed = _timed_passes(serve, 3)
+    emit("ensemble_fixed", n_queries=int(queries.shape[0]), k=K,
+         hash_times=MT_HASH_TIMES, recall_at_10=recall,
+         mean_n_candidates=float(n_cand.mean()), fixed_vs_windowed=agree,
+         cap=lay.cap, layout_rows=lay.n_rows, layout_gib=gib,
+         layout_build_s=build_s, launches=launches, **timed,
+         qps=queries.shape[0] / timed["median_s"])
+    fixed_launches = launches
+
+    midx.engine = "windowed"
+    midx.serving_dtype = torch.int8
+    lay, build_s, gib = layout_of()
+    check(lay.data.dtype == torch.int8 and lay.scale.shape == (lay.n_rows,),
+          "the int8 stacked layout has one scale per stored row")
+    g_cal = midx.calibrate(queries, **kw)
+    reset_launches()
+    ids, n_cand = serve()
+    launches = read_launches("windowed_scores_topk")
+    check(bool(np.array_equal(n_cand, mt_cand)),
+          "ensemble int8: summed n_candidates differ from f32")
+    for row in ids[:200]:
+        real = row[row >= 0]
+        check(len(set(real)) == len(real), "int8: duplicate ids after dedupe")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    check(MT_INT8_RECALL_RANGE[0] <= recall <= MT_INT8_RECALL_RANGE[1],
+          f"ensemble int8 recall@10 {recall} outside {MT_INT8_RECALL_RANGE}")
+    p_ids, _ = midx.query(queries[:MT_GATHER_QUERIES], k=K, plain=True, **kw)
+    vs_plain = id_agreement(p_ids, ids[:MT_GATHER_QUERIES])
+    check(vs_plain >= 0.999, f"ensemble int8 K3 vs plain {vs_plain} < 0.999")
+    timed = _timed_passes(serve, 3)
+    emit("ensemble_int8", n_queries=int(queries.shape[0]), k=K,
+         hash_times=MT_HASH_TIMES, scale_mode=midx.int8_scale,
+         recall_at_10=recall, mean_n_candidates=float(n_cand.mean()),
+         int8_vs_f32_ids=id_agreement(mt_ids, ids), k3_vs_plain=vs_plain,
+         groups_calibrated=g_cal, layout_rows=lay.n_rows,
+         layout_gib_f32=f32_gib, layout_gib_int8=gib, layout_build_s=build_s,
+         launches=launches, **timed, qps=queries.shape[0] / timed["median_s"])
+    midx.serving_dtype = torch.float32
+    return fixed_launches, launches
+
+
+def _seeded_head(kind: str, hash_size: int, seed: int, dim: int = 100,
+                 hidden=(256, 256)):
+    """A head with weights drawn from a seeded ``torch.Generator``: the
+    SIREN trunk's own bounds, ``1/sqrt(fan_in)`` for the output layer."""
+    import math
+
+    import torch
+
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+
+    gen = torch.Generator().manual_seed(seed)
+    head = get_hashing(kind, get_encoder("siren", dim, list(hidden)),
+                       hash_size)
+
+    def draw(t, bound):
+        t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
+
+    with torch.no_grad():
+        for i, layer in enumerate(head.encoder.layers):
+            bound = 1.0 / layer.in_features if i == 0 else \
+                math.sqrt(6.0 / layer.in_features) / head.encoder.w0
+            draw(layer.weight, bound)
+            draw(layer.bias, bound)
+        bound = 1.0 / math.sqrt(head.out.in_features)
+        draw(head.out.weight, bound)
+        draw(head.out.bias, bound)
+    return head.eval()
+
+
+def phase_heads(corpus: np.ndarray, queries: np.ndarray) -> dict:
+    """The other two heads at the bench width (SIREN 100-256-256;
+    Categorical over 4,096 buckets; product quantisation, 3 bands of 4
+    bits), seeded weights: each indexes the first 262,144 rows and the
+    grouped serve (K1) is held to the gather engine; the PQ flip probes
+    are pairwise distinct at 16 and 256 probes."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+
+    rows, qs = corpus[:HEAD_ROWS], queries[:HEAD_QUERIES]
+    kw = dict(k=K, hash_times=HEAD_PROBES, probe_mode="flip")
+    out = {}
+    for kind, seed in (("Categorical", 11), ("ProductQuantization", 12)):
+        head = _seeded_head(kind, 4096 if kind == "Categorical" else 12, seed)
+        check(head.n_buckets == 4096, f"{kind}: n_buckets")
+        idx = Indexer(head, rows, device=DEVICE, metric="cosine",
+                      probe_budget=CAP, engine="gather")
+        x_ids, x_cand = idx.query(qs, **kw)
+        idx.engine = "grouped"
+        _ = idx.layout
+        reset_launches()
+        g_ids, g_cand = idx.query(qs, **kw)
+        launches = read_launches("grouped_scores_topk")
+        check(bool(np.array_equal(g_cand, x_cand)),
+              f"{kind}: n_candidates differ between the engines")
+        has = (x_ids >= 0).any(axis=1)       # probed a non-empty bucket
+        check(bool(np.array_equal(has, (g_ids >= 0).any(axis=1)))
+              and has.mean() >= 0.9, f"{kind}: queries without candidates")
+        agree = id_agreement(x_ids[has], g_ids[has])
+        check(agree >= 0.98, f"{kind}: grouped vs gather {agree} < 0.98")
+        out[kind] = {"buckets_used": idx.n_buckets_used(),
+                     "queries_with_candidates": float(has.mean()),
+                     "max_bucket": idx.table.max_count(),
+                     "mean_n_candidates": float(g_cand.mean()),
+                     "grouped_vs_gather": agree, "launches": launches}
+        if kind == "ProductQuantization":
+            check((head.n_bands, head.bits_per_band) == (3, 4), "PQ bands")
+            q = torch.as_tensor(qs, device=DEVICE)
+            for n_probes in (16, 256):
+                with torch.no_grad():
+                    pid, pv = head.hash(q, n_probes=n_probes,
+                                        probe_mode="flip")
+                s = torch.sort(pid, dim=1).values
+                check(pid.shape == (qs.shape[0], n_probes) and bool(pv.all())
+                      and bool((s[:, 1:] != s[:, :-1]).all()),
+                      f"PQ flip probes repeat at {n_probes} probes")
+            out[kind]["flip_probes_distinct_at"] = [16, 256]
+        del idx
+    emit("heads", n_rows=HEAD_ROWS, n_queries=HEAD_QUERIES,
+         hash_times=HEAD_PROBES, probe_budget=CAP, **out)
+    return {"grouped_scores_topk": sum(
+        o["launches"]["grouped_scores_topk"] for o in out.values())}
+
+
+def phase_serve_cli(restored, queries: np.ndarray, tmp: str) -> dict:
+    """The serving CLI: ``cli.serve.main`` on the synthetic dataset with a
+    small head's artifact, twice with one ``--index_path`` (build and
+    save, then restore: the same answers); then ``serve_loop`` on the
+    full-size restored index with an in-memory stream of 200 requests of
+    1 to 512 queries and one malformed line: answers in order, the error
+    in its place, each answer held to ``Indexer.query`` on the same rows."""
+    import contextlib
+    import io
+
+    from nlsh_tpu_torch.cli import serve as cli
+    from nlsh_tpu_torch.utils.checkpoint import save_model
+
+    os.environ["NLSH_SYNTH_CACHE_DIR"] = os.path.join(tmp, "synth_cache")
+    base = os.path.join(tmp, "small_head")
+    save_model(base, _seeded_head("MultivariateBernoulli", 8, 13, dim=32,
+                                  hidden=(64, 64)))
+    index_path = os.path.join(tmp, "small_index.npz")
+    runs = []
+    for name in ("built", "restored"):
+        check(os.path.exists(index_path) == (name == "restored"),
+              "the first run builds the index file, the second finds it")
+        out_path = os.path.join(tmp, f"answers_{name}.npz")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            result = cli.main(["--model_path", base, "--data_id", "synthetic",
+                               "--index_path", index_path, "--probe_mode",
+                               "flip", "--batch", "64", "--output", out_path])
+        lines = printed.getvalue().strip().splitlines()
+        check(len(lines) == 1 and json.loads(lines[0]) == result,
+              "the CLI prints its result as one JSON line")
+        check({"n_queries", "qps", "query_size", "build_s", "engine", "k",
+               "hash_times", "recall_at_k"} <= set(result), "result keys")
+        with np.load(out_path) as z:
+            runs.append((result, z["topk_ids"], z["n_candidates"]))
+    (r1, ids1, cand1), (r2, ids2, cand2) = runs
+    check(bool(np.array_equal(ids1, ids2))
+          and bool(np.array_equal(cand1, cand2)),
+          "the restored index answers differently")
+    check(r1["engine"] == r2["engine"] == "auto"
+          and 0.0 < r1["recall_at_k"] == r2["recall_at_k"] <= 1.0, "CLI result")
+
+    # the request loop on the full-size restored index
+    rng = np.random.default_rng(21)
+    requests, lines = [], []
+    for rid in range(LOOP_REQUESTS):
+        rows = np.round(queries[rng.choice(
+            queries.shape[0], int(rng.integers(1, LOOP_MAX_BATCH + 1)),
+            replace=False)
+        ].astype(np.float64), 4)
+        requests.append(rows.astype(np.float32))
+        lines.append(json.dumps({"id": rid, "queries": rows.tolist()}))
+    bad_at = 57
+    lines.insert(bad_at, '{"id": "bad", "queries": [[1.0, 2.0]]')
+    args = cli.nlsh_serve_argparse().parse_args(
+        ["--model_path", base, "--data_id", "synthetic", "-k", str(K),
+         "--hash_times", str(HASH_TIMES), "--probe_mode", "flip"])
+    check(args.device == "cuda", "the CLI defaults to the card")
+    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    restored.query(requests[0], **kw)
+    out = io.StringIO()
+    reset_launches()
+    stats = cli.serve_loop(args, restored, {"probe_mode": "flip"},
+                           queries.shape[1],
+                           stdin=io.StringIO("\n".join(lines) + "\n"),
+                           stdout=out)
+    launches = read_launches("grouped_scores_topk")
+    answers = [json.loads(line) for line in out.getvalue().splitlines()]
+    check(len(answers) == LOOP_REQUESTS + 2 and answers[-1] == {"stats": stats},
+          "one answer per line, then the stats line")
+    check(set(answers[bad_at]) == {"id", "error"}
+          and answers[bad_at]["id"] is None, "the error answer's place")
+    got = answers[:bad_at] + answers[bad_at + 1:-1]
+    check([a["id"] for a in got] == list(range(LOOP_REQUESTS)),
+          "answers out of order")
+    exact, worst = 0, 1.0
+    for answer, rows in zip(got, requests):
+        ids = np.asarray(answer["topk_ids"], np.int32)
+        want_ids, want_cand = restored.query(rows, **kw)
+        check(ids.shape == (rows.shape[0], K)
+              and answer["n_candidates"] == want_cand.tolist(),
+              "loop answer: shape or n_candidates")
+        exact += bool(np.array_equal(ids, want_ids))
+        worst = min(worst, id_agreement(want_ids, ids))
+    check(worst >= 0.999, f"a loop answer differs from Indexer.query: {worst}")
+    check(stats["n_queries"] == sum(r.shape[0] for r in requests)
+          and stats["batches"] == LOOP_REQUESTS, "loop stats")
+    emit("serve_cli", cli_built=r1, cli_restored=r2, cli_answers_equal=True,
+         loop_requests=LOOP_REQUESTS, loop_malformed_at=bad_at,
+         loop_answers_bitwise=exact, loop_worst_agreement=worst,
+         loop_launches=launches, stats=stats)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -1425,7 +2108,7 @@ def main() -> int:
     corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
     with np.load(GT) as z:
         gt = z["gt"]
-    idx = phase_index(corpus)
+    idx, build_s = phase_index(corpus)
     ids, n_cand, serve_launches = phase_serve(idx, queries, gt)
     launches.update(serve_launches)
     times.update(phase_kernel_times(idx, queries))
@@ -1438,9 +2121,8 @@ def main() -> int:
     times.update(fixed_times)
     launches.update(k6_launches)
     phase_int8(idx, queries, gt, n_cand)
-    del idx
 
-    midx = phase_ensemble_index(corpus)
+    midx, mt_build_s = phase_ensemble_index(corpus)
     mt_ids, mt_cand, mt_launches = phase_ensemble_serve(midx, queries, gt)
     launches.update(mt_launches)
     if args.profile:
@@ -1449,12 +2131,36 @@ def main() -> int:
     phase_ensemble_parity(midx, queries, mt_ids, mt_cand)
     phase_ensemble_guard(midx, queries, mt_ids, mt_cand)
 
+    # the serving process: every path below runs kernels launched above
+    # from new callers, with the counts set to 0 just before each
+    new_callers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_artifact(corpus, tmp)
+        restored, new_callers["persist"] = phase_persist(
+            idx, midx, corpus, queries, gt, (ids, n_cand, build_s),
+            (mt_ids, mt_cand, mt_build_s), tmp)
+        phase_host_layout(idx, queries, ids, n_cand)
+        del idx
+        new_callers["ensemble_fixed"], new_callers["ensemble_int8"] = \
+            phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand)
+        del midx
+        serve_s = float(np.median(_timed_passes(lambda: restored.query(
+            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip"),
+            3)["pass_s"]))
+        new_callers["updates"] = phase_updates(corpus, queries, gt, serve_s)
+        new_callers["heads"] = phase_heads(corpus, queries)
+        new_callers["serve_cli"] = phase_serve_cli(restored, queries, tmp)
+        del restored
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")
     extra = ("device_ms", "library_device_ms", "ms_note")  # K7's
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **{k: times[name][k] for k in keys},
+         "launches": launches[name],
+         "new_callers": {phase: got[name] for phase, got
+                         in new_callers.items() if name in got},
+         **{k: times[name][k] for k in keys},
          **{k: times[name][k] for k in extra if k in times[name]}}
         for name, (replaces, src) in REPLACES.items()
     ]}), flush=True)

@@ -1,7 +1,8 @@
 """nlsh_tpu_torch — the PyTorch + CUDA port of :mod:`nlsh_tpu`.
 
 The JAX package stays the reference; this package mirrors its module
-names (``ops``, ``models``, ``index``, ``utils``) so each counterpart is
+names (``ops``, ``models``, ``index``, ``parallel``, ``data``, ``utils``,
+``cli``) so each counterpart is
 easy to find, and is held to it by the ``tests/test_torch_*.py`` parity
 tests.  It imports ``torch`` and never ``jax`` or ``nlsh_tpu``.
 

@@ -6,6 +6,8 @@ from nlsh_tpu_torch.models.encoders import (  # noqa: F401
     get_encoder,
 )
 from nlsh_tpu_torch.models.hashings import (  # noqa: F401
+    Categorical,
     MultivariateBernoulli,
+    ProductQuantization,
     get_hashing,
 )

@@ -25,6 +25,7 @@ class MLPEncoder(nn.Module):
         super().__init__()
         self.input_dim = input_dim
         self.hidden_dims = tuple(hidden_dims)
+        self.with_bias = with_bias
         self.with_layernorm = with_layernorm
         dims = (input_dim,) + self.hidden_dims
         self.layers = nn.ModuleList(

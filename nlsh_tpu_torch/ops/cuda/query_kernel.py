@@ -49,9 +49,10 @@ Parity notes (where a port of this module breaks most easily):
   ``associative_scan(max)`` is ``torch.cummax``;
 * int8 rounding is half to even in both (``torch.round``, ``jnp.round``);
 * storage stays int32 as in JAX; indices widen to int64 only to index.
-
-The numpy ``*_host`` layout functions are still to be ported
-(ROADMAP.md Queue 1, item 2).
+* the numpy ``*_host`` layout functions (:func:`serving_layout_host`) are
+  bitwise twins of the torch ones wherever the float math is exact
+  (corpora of small dyadic values); numpy has no bf16, so they round
+  f32 to bf16 half to even on the bit patterns (:func:`_bf16_bits`).
 """
 
 from __future__ import annotations
@@ -164,9 +165,18 @@ def ext_scales(corpus, metric: str, scale_mode: str) -> torch.Tensor:
     """int8 quantisation scale(s) in metric-EXTENDED space: () f32 for
     ``"global"``, ``(n,)`` f32 for ``"per_row"``."""
     ext, _ = _metric_ext(corpus, metric)
-    if scale_mode == "global":
-        return (torch.max(torch.abs(ext)) / 127.0).to(torch.float32)
-    return (torch.max(torch.abs(ext), dim=1).values / 127.0).to(torch.float32)
+    peak = torch.max(torch.abs(ext)) if scale_mode == "global" else \
+        torch.max(torch.abs(ext), dim=1).values
+    return _over_127(peak)
+
+
+def _over_127(peak: torch.Tensor) -> torch.Tensor:
+    """``peak / 127`` as one correctly rounded f32 division.  The divisor
+    is a tensor on ``peak``'s device: by a Python scalar a CUDA tensor is
+    multiplied with the reciprocal, which can land one step away from the
+    quotient the CPU, numpy and the JAX package give."""
+    return (peak / torch.tensor(127.0, dtype=peak.dtype, device=peak.device)
+            ).to(torch.float32)
 
 
 def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
@@ -189,7 +199,7 @@ def layout_arrays(row_ids, starts, counts, corpus, cap: int, n_aligned: int,
     scale_per_row = None
     if dtype == torch.int8:
         if scale is None:
-            scale = torch.max(torch.abs(ext)) / 127.0
+            scale = _over_127(torch.max(torch.abs(ext)))
         scale = torch.as_tensor(scale, dtype=torch.float32,
                                 device=corpus.device)
         div = scale if scale.ndim == 0 else \
@@ -280,6 +290,149 @@ def serving_layout(table, corpus: torch.Tensor, metric: str = "cosine",
         d_pad=data.shape[1], align=align, metric=metric,
         total_blocks=total_blocks, norms=norms, block_rows=br,
         scale=scale_rows if scale_rows is not None else scale,
+    )
+
+
+def _metric_ext_host(corpus: np.ndarray, metric: str):
+    """Numpy twin of :func:`_metric_ext`."""
+    if metric == "cosine":
+        nrm = np.linalg.norm(corpus, axis=1, keepdims=True)
+        return corpus / np.maximum(nrm, np.float32(1e-12)), None
+    if metric in ("euclidean", "sq_euclidean"):
+        return corpus, np.einsum("nd,nd->n", corpus, corpus).astype(np.float32)
+    raise ValueError(f"unsupported serving metric {metric!r}")
+
+
+def ext_scales_host(corpus, metric: str, scale_mode: str):
+    """Numpy twin of :func:`ext_scales`: both divide the same f32 maxima
+    by 127.  A float for ``"global"``, ``(n,)`` f32 for ``"per_row"``."""
+    ext, _ = _metric_ext_host(np.asarray(corpus, np.float32), metric)
+    if scale_mode == "global":
+        return float(np.abs(ext).max() / np.float32(127.0))
+    return (np.abs(ext).max(axis=1) / np.float32(127.0)).astype(np.float32)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> the uint16 bit patterns of its bf16 rounding, half to even
+    (what ``tensor.to(torch.bfloat16)`` and ``astype(jnp.bfloat16)``
+    give); NaNs stay quiet NaNs of their sign."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    rounded = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+               ) >> np.uint32(16)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    quiet = (u >> np.uint32(16)) | np.uint32(0x0040)
+    return np.where(nan, quiet, rounded).astype(np.uint16)
+
+
+def layout_arrays_host(row_ids, starts, counts, corpus, cap: int,
+                       n_aligned: int, metric: str, dtype=torch.float32,
+                       align: int | None = None, scale=None):
+    """Numpy twin of :func:`layout_arrays`: permutes on the host, so only
+    dense, ready arrays go to the device.  Returns numpy ``(data,
+    row_map, aligned_starts, norms, scale_rows)``; bf16 ``data`` is the
+    uint16 bit patterns (numpy has no bf16)."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported layout dtype {dtype}")
+    row_ids = np.asarray(row_ids)
+    starts = np.asarray(starts).astype(np.int64)
+    counts = np.asarray(counts).astype(np.int64)
+    corpus = np.asarray(corpus, np.float32)
+    align = cap if align is None else align
+    ext, sq = _metric_ext_host(corpus, metric)
+
+    scale_per_row = None
+    if dtype == torch.int8:
+        if scale is None:
+            scale = np.abs(ext).max() / np.float32(127.0)
+        scale = np.asarray(scale, np.float32)
+        div = scale if scale.ndim == 0 else \
+            np.maximum(scale, np.float32(1e-30))[:, None]
+        ext = np.clip(np.round(ext / div), -127, 127)   # half to even
+        if scale.ndim == 1:
+            scale_per_row = np.maximum(scale, np.float32(1e-30))
+        if sq is not None:  # norms of the dequantised rows
+            eff = scale if scale.ndim == 0 else scale_per_row
+            sq = (np.einsum("nd,nd->n", ext, ext) * eff * eff
+                  ).astype(np.float32)
+    d_ext = ext.shape[1]
+    d_pad = _round_up(d_ext, LANE)
+
+    aligned_sizes = ((counts + align - 1) // align) * align
+    aligned_starts = np.cumsum(aligned_sizes) - aligned_sizes
+    i = np.arange(row_ids.shape[0], dtype=np.int64)
+    bucket_of = np.searchsorted(starts, i, side="right") - 1
+    aligned_pos = aligned_starts[bucket_of] + (i - starts[bucket_of])
+    valid = i < counts.sum()  # sentinel-hashed rows sort to the tail
+
+    ap, rid = aligned_pos[valid], row_ids[valid]
+    if dtype == torch.bfloat16:
+        data = np.zeros((n_aligned, d_pad), np.uint16)
+        data[ap, :d_ext] = _bf16_bits(ext[rid])
+    else:
+        np_dtype = np.int8 if dtype == torch.int8 else np.float32
+        data = np.zeros((n_aligned, d_pad), np_dtype)
+        data[ap, :d_ext] = ext[rid].astype(np_dtype)
+    row_map = np.full((n_aligned,), -1, np.int32)
+    row_map[ap] = rid
+    norms = None
+    if sq is not None:
+        norms = np.zeros((n_aligned,), np.float32)
+        norms[ap] = sq[rid]
+    scale_rows = None
+    if scale_per_row is not None:
+        scale_rows = np.ones((n_aligned,), np.float32)
+        scale_rows[ap] = scale_per_row[rid]
+    return data, row_map, aligned_starts.astype(np.int32), norms, scale_rows
+
+
+def _host_data_tensor(data: np.ndarray, dtype, device) -> torch.Tensor:
+    """A host-built ``data`` array on ``device`` (bf16 arrives as bits)."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(data.view(np.int16)).to(device).view(
+            torch.bfloat16)
+    return torch.from_numpy(data).to(device)
+
+
+def serving_layout_host(table, corpus, metric: str = "cosine",
+                        cap: int | None = None, dtype=torch.float32,
+                        align: int | None = None,
+                        block_rows: int | None = None, *, device,
+                        scale_mode: str = "per_row") -> ServingLayout:
+    """Host-built :func:`serving_layout`: the same layout, permuted and
+    quantised in numpy from a host corpus (numpy or CPU tensor), so the
+    device holds the finished arrays only and never the raw corpus."""
+    device = torch.device(device)
+    br = _br(block_rows)
+    corpus = corpus.cpu().numpy() if torch.is_tensor(corpus) else \
+        np.asarray(corpus, np.float32)
+    counts_np = table.counts.cpu().numpy()
+    if cap is None:
+        cap = int(counts_np.max())
+    cap = round_cap(cap, br)
+    align = cap if align is None else max(_round_up(align, 8), 8)
+    n_aligned = _round_up(aligned_rows(counts_np, cap, align=align), br)
+    total_blocks = int((-(-np.minimum(counts_np, cap) // br)).sum())
+    scale = None
+    if dtype == torch.int8:
+        _check_scale_mode(scale_mode)
+        scale = ext_scales_host(corpus, metric, scale_mode)
+    data, row_map, starts, norms, scale_rows = layout_arrays_host(
+        table.row_ids.cpu().numpy(), table.starts.cpu().numpy(), counts_np,
+        corpus, cap=cap, n_aligned=n_aligned, metric=metric, dtype=dtype,
+        align=align, scale=scale)
+    if scale_rows is not None:
+        scale = torch.from_numpy(scale_rows).to(device)
+    elif scale is not None:
+        scale = torch.tensor(scale, dtype=torch.float32, device=device)
+    return ServingLayout(
+        data=_host_data_tensor(data, dtype, device),
+        row_map=torch.from_numpy(row_map).to(device),
+        starts=torch.from_numpy(starts).to(device),
+        counts=torch.from_numpy(counts_np.astype(np.int32)).to(device),
+        cap=cap, d_pad=data.shape[1], align=align, metric=metric,
+        total_blocks=total_blocks,
+        norms=None if norms is None else torch.from_numpy(norms).to(device),
+        block_rows=br, scale=scale,
     )
 
 

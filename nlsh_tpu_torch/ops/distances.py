@@ -3,7 +3,8 @@
 Port of :mod:`nlsh_tpu.ops.distances`, the part the gather engine uses:
 
 * ``rowwise(p, q)``:  ``(n, d) x (n, d) -> (n,)`` (broadcasting)
-* ``pairwise(p, q)``: ``(n, d) x (m, d) -> (n, m)``
+* ``pairwise(p, q)``: ``(n, d) x (m, d) -> (n, m)``, and batched
+  ``(b, n, d) x (b, m, d) -> (b, n, m)``
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def cosine_rowwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def cosine_pairwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    return 1.0 - l2_normalize(p) @ l2_normalize(q).T
+    return 1.0 - l2_normalize(p) @ l2_normalize(q).transpose(-1, -2)
 
 
 def sq_l2_rowwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -40,8 +41,8 @@ def sq_l2_rowwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def sq_l2_pairwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``||p_i - q_j||^2`` via the matmul expansion."""
     p_sq = torch.sum(p * p, dim=-1, keepdim=True)      # (n, 1)
-    q_sq = torch.sum(q * q, dim=-1, keepdim=True).T    # (1, m)
-    return torch.clamp(p_sq + q_sq - 2.0 * (p @ q.T), min=0.0)
+    q_sq = torch.sum(q * q, dim=-1, keepdim=True).transpose(-1, -2)  # (1, m)
+    return torch.clamp(p_sq + q_sq - 2.0 * (p @ q.transpose(-1, -2)), min=0.0)
 
 
 def l2_rowwise(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

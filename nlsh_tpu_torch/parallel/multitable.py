@@ -4,7 +4,7 @@ Port of :mod:`nlsh_tpu.parallel.multitable` for a single device.  ``L``
 hashings of one architecture (one ``nn.Module`` per table, e.g. from
 :func:`nlsh_tpu_torch.utils.checkpoint.stacked_params_from_jax`) each
 build a CSR bucket table over the same corpus.  A query probes every
-table; the union of candidates is answered by one of three engines:
+table; the union of candidates is answered by one of four engines:
 
 * ``"windowed"`` (``"auto"`` for the serving metrics): ONE flat serving
   layout over ``L * NB`` buckets (table ``t``'s rows start at
@@ -15,19 +15,24 @@ table; the union of candidates is answered by one of three engines:
   static bound, so no batch ever drops candidates.
 * ``"grouped"``: the same flat layout block-aligned, served by the
   grouped engine (K1/K2) with the exact host-computed group bound.
+* ``"fixed"`` (the JAX package's ``"pallas"``): the flat layout
+  cap-aligned, served by the fixed-cap engine (K5).
 * ``"gather"`` (the JAX package's ``"xla"``): the candidate ids of all
   tables gathered, deduped by id, reranked exactly.  The independent
   check of the two above.
 
 Cross-table duplicates (one corpus row found through several tables,
 scored bit-identically) are collapsed by :meth:`_dedupe_topk` after
-fetching ``k * L``.  ``n_candidates`` is the SUMMED per-table probed
-occupancy on the windowed and grouped engines and the exact DISTINCT
-count on the gather engine and from :meth:`exact_query_size`.
+fetching ``k * L``; int8 layouts (one scale per corpus row, the same
+in every table, or one global scale) leave every engine's scores in
+dequantised units, which that collapse needs.  ``n_candidates`` is the
+SUMMED per-table probed occupancy on the windowed, grouped and
+fixed-cap engines and the exact DISTINCT count on the gather engine and
+from :meth:`exact_query_size`.  ``save``/``load`` keep the stacked CSR
+tables in the JAX package's npz format.
 
-Still to be ported (ROADMAP.md Queue 1, item 9): ``save``/``load``, the
-mesh (table-sharded) path, int8 layouts, the host-built stacked layout
-for >= 2M-row corpora and the fused batched serve.
+Left for the multi-GPU slice: the mesh (table-sharded) path, the
+host-built stacked layout and the lazy host corpus.
 """
 
 from __future__ import annotations
@@ -37,15 +42,26 @@ import torch
 from torch import nn
 
 from nlsh_tpu_torch.index.bucket_table import build_bucket_table
-from nlsh_tpu_torch.index.indexer import hash_corpus
+from nlsh_tpu_torch.index.indexer import (
+    DTYPE_NAMES,
+    ENGINE_TO_JAX,
+    dtype_name,
+    engine_from_jax,
+    hash_corpus,
+)
 from nlsh_tpu_torch.index.query import smallest_k
 from nlsh_tpu_torch.index.serving import (
     _largest_k,
+    serving_query,
     serving_query_grouped,
     serving_query_windowed,
 )
 from nlsh_tpu_torch.ops import distances as D
 from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+from nlsh_tpu_torch.utils.fingerprint import (
+    check_fingerprint,
+    corpus_fingerprint,
+)
 
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
@@ -101,17 +117,25 @@ class MultiTableIndexer:
       probe_budget: rows served per probed bucket; ``None`` uses the
         largest bucket of any table (exact).
       engine: ``"auto"`` (= ``"windowed"`` for cosine and euclidean, else
-        ``"gather"``), ``"windowed"``, ``"grouped"`` or ``"gather"``.
-      serving_dtype: ``torch.float32`` or ``torch.bfloat16`` layout rows.
+        ``"gather"``), ``"windowed"``, ``"grouped"``, ``"fixed"`` or
+        ``"gather"``.
+      serving_dtype: ``torch.float32``, ``torch.bfloat16`` or
+        ``torch.int8`` layout rows.
       block_rows: rows per window / block (default 512).
+      tables: ready stacked CSR arrays ``(row_ids (L, n), starts (L, NB),
+        counts (L, NB))`` (the persistence path): the corpus is then not
+        hashed.
+      int8_scale: ``"per_row"`` or ``"global"``; int8 layouts only.
     """
 
-    ENGINES = ("auto", "windowed", "grouped", "gather")
+    ENGINES = ("auto", "windowed", "grouped", "fixed", "gather")
 
     def __init__(self, hashings: list[nn.Module], corpus, *, device,
                  metric: str = "cosine", probe_budget: int | None = None,
                  engine: str = "auto", serving_dtype=torch.float32,
-                 block_rows: int | None = None):
+                 block_rows: int | None = None, tables=None,
+                 int8_scale: str = "per_row"):
+        qk._check_scale_mode(int8_scale)
         self.device = torch.device(device)
         self.hashings = [h.to(self.device).eval() for h in hashings]
         n_buckets = {h.n_buckets for h in self.hashings}
@@ -124,16 +148,22 @@ class MultiTableIndexer:
         self.metric = metric
         self.serving_dtype = serving_dtype
         self.block_rows = block_rows
+        self.int8_scale = int8_scale
         self._stacked = None
         self._stacked_sig = None
         self._g_cal: int | None = None  # set by :meth:`calibrate`
         self.engine = engine
-        # one table at a time: each hash + stable sort's transients only
-        tables = [build_bucket_table(hash_corpus(h, self.corpus),
-                                     self.n_buckets) for h in self.hashings]
-        self.row_ids = torch.stack([t.row_ids for t in tables])  # (L, n)
-        self.starts = torch.stack([t.starts for t in tables])    # (L, NB)
-        self.counts = torch.stack([t.counts for t in tables])    # (L, NB)
+        if tables is None:
+            # one table at a time: each hash + stable sort's transients only
+            built = [build_bucket_table(hash_corpus(h, self.corpus),
+                                        self.n_buckets)
+                     for h in self.hashings]
+            tables = tuple(torch.stack([getattr(t, name) for t in built])
+                           for name in ("row_ids", "starts", "counts"))
+        # (L, n), (L, NB), (L, NB)
+        self.row_ids, self.starts, self.counts = (
+            torch.as_tensor(t, dtype=torch.int32, device=self.device)
+            for t in tables)
         if probe_budget is None:
             probe_budget = int(self.counts.max())
         self.probe_budget = max(int(probe_budget), 1)
@@ -159,11 +189,65 @@ class MultiTableIndexer:
             self._stacked = None
             self._g_cal = None
 
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist the L stacked CSR tables and the serving knobs (NOT
+        the corpus or the models: the caller owns those) as the JAX
+        package's npz archive, with its engine and dtype names; without
+        it a restart of an L=8 ensemble hashes the corpus 8 times."""
+        np.savez_compressed(
+            path,
+            row_ids=self.row_ids.cpu().numpy(),
+            starts=self.starts.cpu().numpy(),
+            counts=self.counts.cpu().numpy(),
+            meta=np.array([
+                self.metric, str(self.probe_budget),
+                ENGINE_TO_JAX[self._engine], dtype_name(self.serving_dtype),
+                str(self.block_rows), str(self.n_tables),
+                str(self.corpus.shape[0]),
+                corpus_fingerprint(self.corpus),
+                self.int8_scale,
+            ]),
+        )
+
+    @classmethod
+    def load(cls, path: str, hashings: list[nn.Module], corpus, *,
+             device) -> "MultiTableIndexer":
+        """Rebuild from :meth:`save` output (of this package or of the JAX
+        package) without re-hashing; refuses a different corpus or table
+        count."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = [str(v) for v in z["meta"]]
+            # archives from before the int8_scale knob were global-scale
+            int8_scale = meta[8] if len(meta) > 8 else "global"
+            (metric, probe_budget, engine, sdtype, block_rows,
+             n_tables, n_rows, digest) = meta[:8]
+            if int(n_tables) != len(hashings):
+                raise ValueError(
+                    f"saved ensemble has {n_tables} tables, params have "
+                    f"{len(hashings)}"
+                )
+            if int(n_rows) != corpus.shape[0]:
+                raise ValueError(
+                    f"saved index is over {n_rows} corpus rows, got "
+                    f"{corpus.shape[0]}"
+                )
+            check_fingerprint(digest, corpus)
+            tables = (z["row_ids"], z["starts"], z["counts"])
+        return cls(
+            hashings, corpus, device=device, metric=metric,
+            probe_budget=int(probe_budget), engine=engine_from_jax(engine),
+            serving_dtype=DTYPE_NAMES[sdtype],
+            block_rows=None if block_rows == "None" else int(block_rows),
+            tables=tables, int8_scale=int8_scale,
+        )
+
     # -- the flat stacked serving layout -------------------------------------
 
     def _stacked_signature(self) -> tuple:
         return (self.engine, self.serving_dtype, int(self.probe_budget),
-                self.block_rows)
+                self.block_rows, self.int8_scale)
 
     def _serving_layout(self) -> qk.ServingLayout:
         """The flat layout over ``L * NB`` buckets, built on first use and
@@ -178,7 +262,7 @@ class MultiTableIndexer:
         br = qk._br(self.block_rows)
         cap = qk.round_cap(self.probe_budget, br)
         # windowed: dense 8-row starts (ensemble buckets are far smaller
-        # than a block); grouped: block-aligned starts
+        # than a block); grouped: block-aligned starts; fixed-cap: cap
         align = {"grouped": br, "windowed": 8}.get(self.engine, cap)
         counts_np = self.counts.cpu().numpy()
         # a multiple of br, so the flat (table, window) space is exact
@@ -197,11 +281,18 @@ class MultiTableIndexer:
         ``n_aligned``) written into one flat array, table-major, its
         bucket starts offset by ``table * n_aligned``.  Built one table
         at a time into the preallocated flat arrays, so the peak is the
-        flat layout plus one table's transients."""
-        if self.serving_dtype not in (torch.float32, torch.bfloat16):
-            raise NotImplementedError(
-                f"{self.serving_dtype} stacked layouts are not ported yet "
-                "(ROADMAP.md Queue 1, item 9)")
+        flat layout plus one table's transients.
+
+        int8 scales are taken over the SHARED corpus (every table
+        quantises the same rows): ``"per_row"`` is one scale per corpus
+        row, identical across tables and scattered by each table's
+        permutation; ``"global"`` one scalar."""
+        if self.serving_dtype not in DTYPE_NAMES.values():
+            raise ValueError(f"unsupported layout dtype {self.serving_dtype}")
+        is_int8 = self.serving_dtype == torch.int8
+        per_row = is_int8 and self.int8_scale == "per_row"
+        scale = qk.ext_scales(self.corpus, self.metric, self.int8_scale) \
+            if is_int8 else None
         L, n = self.n_tables, n_aligned
         d_pad = qk._round_up(self.corpus.shape[1], qk.LANE)
         data = torch.empty((L * n, d_pad), dtype=self.serving_dtype,
@@ -209,25 +300,31 @@ class MultiTableIndexer:
         row_map = torch.empty(L * n, dtype=torch.int32, device=self.device)
         starts = torch.empty((L, self.n_buckets), dtype=torch.int32,
                              device=self.device)
-        norms = None
+        norms = scale_rows = None
         if self.metric != "cosine":
             norms = torch.empty(L * n, dtype=torch.float32,
                                 device=self.device)
+        if per_row:
+            scale_rows = torch.empty(L * n, dtype=torch.float32,
+                                     device=self.device)
         for t in range(L):
-            d, rm, st, nr, _ = qk.layout_arrays(
+            d, rm, st, nr, sr = qk.layout_arrays(
                 self.row_ids[t], self.starts[t], self.counts[t], self.corpus,
                 cap=cap, n_aligned=n, metric=self.metric,
-                dtype=self.serving_dtype, align=align)
+                dtype=self.serving_dtype, align=align, scale=scale)
             data[t * n:(t + 1) * n] = d
             row_map[t * n:(t + 1) * n] = rm
             starts[t] = st + t * n
             if norms is not None:
                 norms[t * n:(t + 1) * n] = nr
+            if per_row:
+                scale_rows[t * n:(t + 1) * n] = sr
         return qk.ServingLayout(
             data=data, row_map=row_map, starts=starts.reshape(-1),
             counts=self.counts.reshape(-1), cap=cap, d_pad=d_pad,
             align=align, metric=self.metric, total_blocks=total_blocks,
-            norms=norms, block_rows=br)
+            norms=norms, block_rows=br,
+            scale=scale_rows if per_row else scale)
 
     # -- probes ----------------------------------------------------------------
 
@@ -353,9 +450,9 @@ class MultiTableIndexer:
         return (self._g_cal if needed <= self._g_cal else None), needed
 
     def _query_serving(self, queries, pids, pvalid, k: int, plain: bool):
-        """One windowed or grouped serve over the flat layout, then the
-        duplicate collapse.  ``n_candidates`` is the summed probed
-        occupancy across tables."""
+        """One windowed, grouped or fixed-cap serve over the flat layout,
+        then the duplicate collapse.  ``n_candidates`` is the summed
+        probed occupancy across tables."""
         layout = self._serving_layout()
         cap, br = layout.cap, layout.br
         gp, gv = self._flat_probes(pids, pvalid)
@@ -366,6 +463,10 @@ class MultiTableIndexer:
             ids, scores, n_cand = serving_query_windowed(
                 layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
                 g_total_override=g_override, plain=plain)
+        elif self.engine == "fixed":
+            ids, scores, n_cand = serving_query(
+                layout, queries, gp, gv, layout.counts, k=k_fetch,
+                plain=plain)
         else:
             # ensemble buckets have low multiplicity, so the static bound
             # is several-fold loose: one host read for the exact one
@@ -405,8 +506,8 @@ class MultiTableIndexer:
         """Enqueue an ensemble query: returns ``(topk_ids, n_candidates)``
         device tensors for :meth:`fetch`.  ``probe_mode="flip"`` probes
         each table's ``hash_times`` best-first bit-flip buckets.
-        ``plain=True`` serves the windowed or grouped engine with the
-        kernels' plain PyTorch versions."""
+        ``plain=True`` serves the windowed, grouped or fixed-cap engine
+        with the kernels' plain PyTorch versions."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         pids, pvalid = self._probes(queries, hash_times, generator,

@@ -1,1 +1,2 @@
-"""Utilities: checkpoint reading and evaluation metrics."""
+"""Utilities: checkpoints and model artifacts, corpus fingerprints,
+environment config and evaluation metrics."""

@@ -14,7 +14,10 @@ The bench workload (1,183,514 x 100, 10,000 queries, seed 0), f32, k = 10:
   committed 8-table ensemble, 4 flip probes per table, the windowed
   engine after ``calibrate``: recall@10 0.99211, mean n_candidates
   (summed per-table occupancy) 9539.69 and mean exact query_size
-  8881.76, the JAX package's exact-f32 CPU values.
+  8881.76, the JAX package's exact-f32 CPU values;
+* the same ensemble on the per-row int8 stacked layout: recall@10
+  0.93833 (the int8 window of ``chip_smoke.py``'s ``ensemble_int8``
+  phase) and the f32 candidates.
 
 Exact f32 throughout.  Imports no JAX, so it also runs where JAX is not
 installed:
@@ -145,3 +148,33 @@ def test_full_ensemble_on_cpu():
     assert abs(n_cand.mean() - 9539.69) <= 0.5, n_cand.mean()
     size = idx.exact_query_size(queries, **kw)
     assert abs(size.mean() - 8881.76) <= 0.5, size.mean()
+
+
+# The ensemble on the per-row int8 stacked layout, windowed engine: the
+# port's plain serve on the CPU, as INT8_RECALL above; the int8 window of
+# chip_smoke.py's `ensemble_int8` phase.
+MT_INT8_RECALL = 0.93833
+
+
+@pytest.mark.slow
+def test_full_ensemble_int8_per_row_on_cpu():
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.checkpoint import read_msgpack, stacked_params_from_jax
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    corpus, queries, gt = _workload()
+    hashings = stacked_params_from_jax(_make_hashing, read_msgpack(os.path.join(
+        _CACHE, "cfgparams_mthr_glove100_b12_s600_b2048_t8_v2.msgpack"))["hashing"])
+    idx = MultiTableIndexer(hashings, torch.from_numpy(corpus), device="cpu",
+                            metric="cosine", serving_dtype=torch.int8)
+    kw = dict(hash_times=4, probe_mode="flip")
+    idx.calibrate(queries, **kw)
+    layout = idx._serving_layout()
+    assert layout.data.dtype == torch.int8
+    assert layout.scale.shape == (layout.n_rows,)
+    ids, n_cand = idx.query(queries, k=10, **kw)
+    recall = calculate_recall(gt, ids, np.mean)
+    assert abs(recall - MT_INT8_RECALL) <= 0.0005, recall
+    assert abs(n_cand.mean() - 9539.69) <= 0.5, n_cand.mean()

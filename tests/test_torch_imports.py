@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
                  "models.hashings",
                  "index.bucket_table", "index.indexer", "index.query",
                  "index.serving", "parallel", "parallel.multitable",
-                 "utils.checkpoint", "utils.metrics", "tools.topk_phases",
-                 "tools.panel_variants"):
+                 "utils.checkpoint", "utils.metrics", "utils.fingerprint",
+                 "utils.env", "ops.knn", "data", "data.datasets",
+                 "data.binformats", "cli", "cli.serve", "tools.topk_phases",
+                 "tools.panel_variants", "tools.fixed_events"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]

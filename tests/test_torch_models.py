@@ -138,8 +138,11 @@ def test_get_hashing_names_unported_heads():
     assert isinstance(get_hashing("MultivariateBernoulli", enc, 4),
                       MultivariateBernoulli)
     assert get_hashing("MultivariateBernoulliTanh", enc, 4).tanh_output
-    for name in ("Categorical", "ProductQuantization"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_hashing(name, enc, 4)
+    # every head of the JAX package is ported now: none is named as missing
+    cat = get_hashing("Categorical", enc, 4)
+    assert type(cat).__name__ == "Categorical" and cat.n_buckets == 4
+    pq = get_hashing("ProductQuantization", enc, 6)
+    assert type(pq).__name__ == "ProductQuantization"
+    assert (pq.n_bands, pq.bits_per_band, pq.n_buckets) == (3, 2, 64)
     with pytest.raises(ValueError):
         get_hashing("nope", enc, 4)
