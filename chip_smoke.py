@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one GPU and check them.
+"""Drive the port's serving and training paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
     python3 chip_smoke.py --profile  # also profile the fixed-cap and the
-                                     # ensemble serve, 3 passes each
+                                     # ensemble serve, 3 passes each, and
+                                     # 3 training steps
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
 power limit line), the kernel build (one ``nvcc`` per source, in
@@ -60,13 +61,40 @@ Then the serving process, on the same workload, each phase one line:
   ``serve_loop`` on the restored full-size index with 200 requests and a
   malformed line; its ``stats`` (QPS, latency p50 / p95 / max).
 
+Then training, at the bench's training configuration (SIREN
+100->256->256, 12-bit MVB, triplet with margin 0.5, positive_k 20 and
+balance lambda 1.5, batch 2048, lr 1e-3, seed 0) on its 131,072-row
+subset (drawn, as ``bench.py`` draws it, from the workload's generator),
+each phase one line:
+
+* ``train_knn``: the subset's self-kNN (k = 20) on the card against the
+  committed ``sub_knn``: ids agree on >= 0.999 of the slots, and rows
+  differ only at ties;
+* ``train_step``: from the committed params, on the same injected
+  arrays, step 1's loss and every gradient on the card within rtol 1e-4
+  of the CPU's, the first 20 steps' losses within rtol 1e-3;
+* ``train``: ``TripletTrainer.fit`` for 1,000 steps with an eval every
+  500 (K1 from the trainer), then the full corpus indexed with the
+  trained module and served at 16 flip probes, cap 512: recall@10 in
+  [0.730, 0.755] and mean candidates in [4400, 4950] (the JAX package's
+  fit at seeds 0 and 1 lands at 0.73949 / 4670.52 and 0.74233 / 4667.84,
+  ``train_anchor.py``), ``train_s`` and steps/s;
+* ``train_ensemble``: ``MultiTableTrainer(L=8)`` at
+  ``benchmarks/mt_highrecall.py``'s configuration, 600 steps and one
+  eval (K3 from the trainer), then the full corpus at 4 flip probes per
+  table on the windowed engine: recall@10 >= 0.985;
+* ``train_cli``: ``nlsh_tpu_torch.cli.train.main`` on the synthetic
+  dataset with the JSONL logger: its checkpoint loads and serves, and
+  ``--resume_from`` continues at the saved step.
+
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
 k=20; K5: the fixed-cap serve; K6: the serve's events scored by row
 offset, since the JAX package has no caller of it; K7: the int8 probe).
-The serving-process phases reset and read the counts the same way; what
-they launched is each kernel's ``new_callers`` in the ``kernels`` line.
+The serving-process and training phases reset and read the counts the
+same way; what they launched is each kernel's ``new_callers`` in the
+``kernels`` line.
 
 Every kernel time comes with its plain version's, its bound and its
 yardstick: ``bound_ms`` is the larger of the bytes the call must move
@@ -2086,13 +2114,354 @@ def phase_serve_cli(restored, queries: np.ndarray, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training: the bench's training configuration at full width
+# ---------------------------------------------------------------------------
+
+# the bench's fit (bench.TRAIN_CFG, 1,000 steps) on its 131,072-row subset;
+# the JAX package's fit at seeds 0 and 1, exact f32 on the CPU, served by
+# the port's plain CPU serve (`train_anchor.py`): recall@10 0.73949 and
+# 0.74233, candidates 4670.52 and 4667.84; the committed params (another
+# stream) give 0.74264 and 4670.30
+TRAIN_EVERY = 500
+TRAIN_RECALL_RANGE = (0.730, 0.755)
+TRAIN_N_CAND_RANGE = (4400.0, 4950.0)
+TRAIN_STEP_CHECK = 20            # steps held card against CPU
+TRAIN_STEP_RTOL = 1e-4           # step 1: loss and every gradient
+TRAIN_LOSSES_RTOL = 1e-3         # the first 20 steps' losses
+# benchmarks/mt_highrecall.py's ensemble: 8 x 12 bits, 600 steps; the
+# committed ensemble gives 0.99211 at 4 flip probes per table
+ENSEMBLE_TRAIN_STEPS = 600
+ENSEMBLE_RECALL_MIN = 0.985
+KNN_AGREEMENT_MIN = 0.999
+KNN_TIE_TOL = 1e-5               # distances of differing ids, float64
+
+
+def _train_cfg() -> dict:
+    import bench
+
+    c = bench.TRAIN_CFG
+    return dict(margin=c["margin"], positive_k=c["positive_k"],
+                balance_lambda=c["balance_lambda"])
+
+
+def _bench_head():
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+
+    return get_hashing("MultivariateBernoulli",
+                       get_encoder("siren", 100, [256, 256]), 12)
+
+
+def _cosine64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return 1.0 - np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1)
+                                     * np.linalg.norm(b, axis=-1))
+
+
+def phase_train_knn(sub: np.ndarray, sub_knn: np.ndarray) -> None:
+    """The training subset's self-kNN (k = 20, cosine) on the card against
+    the committed ``sub_knn`` (the JAX package's exact f32): ids agree on
+    at least 0.999 of the slots, and where a row's ids differ its sorted
+    float64 distances agree (the rows differ only at ties)."""
+    import torch
+
+    from nlsh_tpu_torch.ops.knn import self_knn
+
+    t0 = time.perf_counter()
+    nbr = self_knn(sub, k=sub_knn.shape[1], metric="cosine", device=DEVICE)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    nbr = nbr.cpu().numpy()
+    check(nbr.shape == sub_knn.shape, "self_knn shape")
+    agree = id_agreement(nbr, sub_knn)
+    rows = np.flatnonzero(np.any(np.sort(nbr, 1) != np.sort(sub_knn, 1), 1))
+    gap = 0.0
+    for i in rows:
+        ours = np.sort(_cosine64(sub[i], sub[nbr[i]]))
+        theirs = np.sort(_cosine64(sub[i], sub[sub_knn[i]]))
+        gap = max(gap, float(np.max(np.abs(ours - theirs))))
+    check(agree >= KNN_AGREEMENT_MIN,
+          f"self_knn vs the committed sub_knn {agree} < {KNN_AGREEMENT_MIN}")
+    check(gap <= KNN_TIE_TOL, f"a row's ids differ off a tie: {gap}")
+    emit("train_knn", n_rows=int(sub.shape[0]), k=int(sub_knn.shape[1]),
+         knn_s=knn_s, agreement=agree, rows_differing=int(rows.size),
+         max_distance_gap=gap)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-30))
+
+
+def phase_train_step(data, profile: bool = False) -> None:
+    """The triplet step at the bench's width, card against CPU, from the
+    committed params (``params_from_jax``) on the same injected arrays:
+    step 1's loss and every gradient within ``TRAIN_STEP_RTOL`` of the
+    tensor's largest magnitude, the first 20 steps' losses within
+    ``TRAIN_LOSSES_RTOL``.  ``profile``: then 3 steps on the card under
+    ``torch.profiler`` (``train_profile``)."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.train import TripletTrainer
+    from nlsh_tpu_torch.train.base import device_arrays, param_leaves
+
+    bs = bench.TRAIN_CFG["batch_size"]
+    n = data.training.shape[0]
+    rng = np.random.default_rng(0)
+    arrays = {"anchor": rng.integers(0, n, TRAIN_STEP_CHECK * bs),
+              "col": rng.integers(0, 20, TRAIN_STEP_CHECK * bs),
+              "neg": rng.integers(0, n, TRAIN_STEP_CHECK * bs)}
+    trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
+    out = {}
+    for device in ("cpu", DEVICE):
+        params = {"hashing": load_hashing().to(device).train(), "extra": {}}
+        corpus = torch.as_tensor(data.training, device=device)
+        knn = torch.as_tensor(data.training_self_knn.astype(np.int64),
+                              device=device)
+        dev_arrays = device_arrays(arrays, device)
+        batch = {k: v[:bs] for k, v in dev_arrays.items()}
+        loss = trainer.loss_fn(params, corpus, knn, batch,
+                               torch.Generator().manual_seed(0))
+        grads = torch.autograd.grad(loss, param_leaves(params))
+        state = trainer.make_state(params, bench.TRAIN_CFG["learning_rate"])
+        t0 = time.perf_counter()
+        _, losses = trainer.run_segment(state, corpus, knn, dev_arrays, 0,
+                                        TRAIN_STEP_CHECK, bs)
+        losses = losses.cpu()
+        out[device] = (loss, grads, losses, time.perf_counter() - t0)
+        if profile and device == DEVICE:
+            _profile_passes("train_profile", lambda: trainer.run_segment(
+                state, corpus, knn, dev_arrays, 0, 1, bs), top=15)
+    (l0, g0, s0, cpu_s), (l1, g1, s1, card_s) = out["cpu"], out[DEVICE]
+    loss_err = _rel_err(l1, l0)
+    grad_err = max(_rel_err(a, b) for a, b in zip(g1, g0))
+    losses_err = float(((s1 - s0).abs() / s0.abs()).max())
+    check(loss_err <= TRAIN_STEP_RTOL and grad_err <= TRAIN_STEP_RTOL,
+          f"step 1 card vs CPU: loss {loss_err}, gradients {grad_err}")
+    check(losses_err <= TRAIN_LOSSES_RTOL,
+          f"{TRAIN_STEP_CHECK} steps' losses card vs CPU: {losses_err}")
+    emit("train_step", batch_size=bs, steps=TRAIN_STEP_CHECK,
+         step1_loss=float(l1.detach()), step1_loss_rel_err=loss_err,
+         step1_grad_rel_err=grad_err, losses_rel_err=losses_err,
+         losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s)
+
+
+class _TimedEvals:
+    """Wraps a trainer's ``_evaluate``: the host seconds of each eval."""
+
+    def __init__(self, trainer):
+        self.seconds = []
+        self._evaluate = trainer._evaluate
+        trainer._evaluate = self
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self._evaluate(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _fit_logged(trainer, log_path: str, **fit_kw):
+    """``trainer.fit`` on the card, timed, with its evals timed; returns
+    the state, train_s, the evals' seconds and the logged metrics."""
+    import torch
+
+    evals = _TimedEvals(trainer)
+    t0 = time.perf_counter()
+    state = trainer.fit(device=DEVICE, **fit_kw)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer.logger.close()
+    metrics = {}
+    with open(log_path) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["kind"] == "metric" and r["name"] != "training/loss":
+                metrics.setdefault(r["name"], []).append([r["step"],
+                                                          r["value"]])
+    return state, train_s, evals.seconds, metrics
+
+
+def phase_train(data, corpus: np.ndarray, queries: np.ndarray,
+                gt: np.ndarray, tmp: str) -> dict:
+    """``TripletTrainer.fit`` at the bench's configuration for 1,000
+    steps, an eval every 500 (two, on the subset and its 256 queries: K1
+    from the trainer), then the full corpus indexed with the trained
+    module and the 10,000 queries served at 16 flip probes, cap 512:
+    recall@10 and candidates in their windows.  Returns the fit's
+    launches."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.train import TripletTrainer
+    from nlsh_tpu_torch.utils.loggers import JSONLLogger
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    log = os.path.join(tmp, "train.jsonl")
+    trainer = TripletTrainer(_bench_head(), data, os.path.join(tmp, "train"),
+                             logger=JSONLLogger(log, "train"), **_train_cfg())
+    reset_launches()
+    state, train_s, eval_s, metrics = _fit_logged(
+        trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
+        learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=100,
+        test_every_updates=TRAIN_EVERY, max_steps=bench.TRAIN_STEPS,
+        hash_times=HASH_TIMES, seed=bench.SEED)
+    launches = read_launches("grouped_scores_topk")
+    check(state.step == bench.TRAIN_STEPS and len(eval_s) == 2,
+          f"{state.step} steps, {len(eval_s)} evals")
+
+    idx = Indexer(state.params["hashing"], corpus, device=DEVICE,
+                  metric="cosine", probe_budget=CAP)
+    ids, n_cand = idx.query(queries, k=K, hash_times=HASH_TIMES,
+                            probe_mode="flip")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    check(TRAIN_RECALL_RANGE[0] <= recall <= TRAIN_RECALL_RANGE[1],
+          f"trained recall@10 {recall} outside {TRAIN_RECALL_RANGE}")
+    check(TRAIN_N_CAND_RANGE[0] <= mean_cand <= TRAIN_N_CAND_RANGE[1],
+          f"trained mean n_candidates {mean_cand} outside "
+          f"{TRAIN_N_CAND_RANGE}")
+    step_s = train_s - sum(eval_s)
+    emit("train", steps=state.step, train_s=train_s, eval_s=eval_s,
+         steps_per_s=state.step / step_s, step_ms=1e3 * step_s / state.step,
+         launches=launches, eval_metrics=metrics, recall_at_10=recall,
+         mean_n_candidates=mean_cand, max_bucket=idx.table.max_count(),
+         buckets_used=idx.n_buckets_used())
+    del idx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_ensemble(data, corpus: np.ndarray, queries: np.ndarray,
+                         gt: np.ndarray, tmp: str) -> dict:
+    """``MultiTableTrainer(L=8)`` at ``benchmarks/mt_highrecall.py``'s
+    configuration for 600 steps with one eval (K3 from the trainer), then
+    the full corpus served at 4 flip probes per table on the windowed
+    engine: recall@10 >= ``ENSEMBLE_RECALL_MIN``.  Returns the fit's
+    launches."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.train import MultiTableTrainer, TripletTrainer
+    from nlsh_tpu_torch.utils.loggers import JSONLLogger
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    log = os.path.join(tmp, "train_ensemble.jsonl")
+    inner = TripletTrainer(_bench_head(), data,
+                           os.path.join(tmp, "train_ensemble"),
+                           logger=JSONLLogger(log, "ensemble"), **_train_cfg())
+    trainer = MultiTableTrainer(inner, 8)
+    reset_launches()
+    state, train_s, eval_s, metrics = _fit_logged(
+        trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
+        learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=1000,
+        test_every_updates=ENSEMBLE_TRAIN_STEPS,
+        max_steps=ENSEMBLE_TRAIN_STEPS, hash_times=HASH_TIMES, seed=bench.SEED)
+    launches = read_launches("windowed_scores_topk")
+    check(state.step == ENSEMBLE_TRAIN_STEPS and len(eval_s) == 1,
+          f"{state.step} steps, {len(eval_s)} evals")
+
+    midx = MultiTableIndexer(state.params["hashing"], corpus, device=DEVICE,
+                             metric="cosine")
+    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    midx.calibrate(queries, **kw)
+    ids, n_cand = midx.query(queries, k=K, **kw)
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    size = float(midx.exact_query_size(queries, **kw).mean())
+    check(recall >= ENSEMBLE_RECALL_MIN,
+          f"trained ensemble recall@10 {recall} < {ENSEMBLE_RECALL_MIN}")
+    step_s = train_s - sum(eval_s)
+    emit("train_ensemble", n_tables=8, steps=state.step, train_s=train_s,
+         eval_s=eval_s, steps_per_s=state.step / step_s,
+         step_ms=1e3 * step_s / state.step, launches=launches,
+         eval_metrics=metrics, engine=midx.engine, recall_at_10=recall,
+         mean_n_candidates=float(n_cand.mean()), mean_exact_query_size=size,
+         max_bucket=[int(c) for c in midx.counts.max(dim=1).values],
+         buckets_used=[int(c) for c in (midx.counts > 0).sum(dim=1)])
+    del midx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cli(tmp: str) -> dict:
+    """``python3 -m nlsh_tpu_torch.cli.train`` (its ``main``) on the
+    synthetic dataset with the JSONL logger, on the card by default: it
+    checkpoints at its evals, ``load_model`` of the last checkpoint
+    serves the dataset, and ``--resume_from`` continues at the saved
+    step.  Returns the launches of the run, the serve and the resume."""
+    import contextlib
+    import io
+
+    from nlsh_tpu_torch.cli import train as cli
+    from nlsh_tpu_torch.data import SyntheticDataset
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.utils.checkpoint import load_model
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    os.environ["NLSH_SYNTH_CACHE_DIR"] = os.path.join(tmp, "synth_cache")
+    os.environ["NLSH_LOG_DIR"] = os.path.join(tmp, "train_logs")
+    save_dir = os.path.join(tmp, "cli_models")
+    common = ["--data_id", "synthetic", "--test_every_updates", "32",
+              "--hash_times", "8", "--probe_mode", "flip"]
+    check(cli.nlsh_argparse().parse_args(common).device == "cuda",
+          "the training CLI defaults to the card")
+    reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        state = cli.main(common + ["--logger_type", "jsonl", "--max_steps",
+                                   "64", "--model_save_dir", save_dir])
+    train_s = time.perf_counter() - t0
+    saved = sorted((f for f in os.listdir(save_dir) if f.endswith(".state")),
+                   key=lambda f: int(f.split("_")[-2]))
+    check(state.step == 64 and bool(saved), f"CLI run: {state.step}, {saved}")
+    base = os.path.join(save_dir, saved[-1][:-len(".state")])
+    saved_step = int(saved[-1].split("_")[-2])
+    logs = os.listdir(os.environ["NLSH_LOG_DIR"])
+    with open(os.path.join(os.environ["NLSH_LOG_DIR"], logs[0])) as f:
+        logged = [json.loads(line) for line in f]
+    loss_steps = [r["step"] for r in logged if r.get("name") == "training/loss"]
+    check(loss_steps == list(range(1, 65)), "the JSONL log's loss steps")
+
+    hashing = load_model(base, device=DEVICE)
+    data = SyntheticDataset(device=DEVICE).load()
+    idx = Indexer(hashing, data.training, device=DEVICE)
+    ids, n_cand = idx.query(data.testing, k=K, hash_times=8, probe_mode="flip")
+    recall = float(calculate_recall(data.ground_truth[:, :K], ids, np.mean))
+    check(ids.shape == (data.testing.shape[0], K) and 0.0 < recall <= 1.0,
+          f"the checkpoint's serve: {ids.shape}, recall {recall}")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        resumed = cli.main(common + ["--debug", "--max_steps",
+                                     str(saved_step + 32), "--resume_from",
+                                     base + ".state", "--model_save_dir",
+                                     os.path.join(tmp, "cli_resumed")])
+    check(resumed.step == saved_step + 32
+          and resumed.opt_state.count == saved_step + 32,
+          f"resumed at {saved_step}: {resumed.step} steps")
+    launches = read_launches("grouped_scores_topk")
+    emit("train_cli", steps=state.step, train_s=train_s,
+         checkpoints=saved, resumed_from=saved_step, resumed_to=resumed.step,
+         serve_recall_at_10=recall, serve_mean_n_candidates=float(
+             n_cand.mean()), launches=launches)
+    return launches
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile 3 fixed-cap and 3 ensemble serve "
-                             "passes")
+                             "passes, and 3 training steps")
     args = parser.parse_args()
     import bench  # fails, before any output, outside a checkout of the repo
     import nlsh_tpu_torch  # noqa: F401
@@ -2105,9 +2474,13 @@ def main() -> int:
     k7_launches, times["int8_block_scores"] = phase_int8_probe()
     launches.update(k7_launches)
 
-    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
+    # the subset is drawn from the same generator straight after the
+    # workload, as bench.py draws it
+    rng = np.random.default_rng(bench.SEED)
+    corpus, queries = bench.glove100_workload(rng)
+    sub_idx = rng.choice(bench.N_CORPUS, bench.TRAIN_SUBSET, replace=False)
     with np.load(GT) as z:
-        gt = z["gt"]
+        gt, sub_knn = z["gt"], z["sub_knn"]
     idx, build_s = phase_index(corpus)
     ids, n_cand, serve_launches = phase_serve(idx, queries, gt)
     launches.update(serve_launches)
@@ -2151,6 +2524,16 @@ def main() -> int:
         new_callers["heads"] = phase_heads(corpus, queries)
         new_callers["serve_cli"] = phase_serve_cli(restored, queries, tmp)
         del restored
+
+        # training at the bench's configuration, on its subset
+        data = bench._BenchData(corpus[sub_idx], queries[:256], gt[:256],
+                                sub_knn, "cosine")
+        phase_train_knn(data.training, sub_knn)
+        phase_train_step(data, args.profile)
+        new_callers["train"] = phase_train(data, corpus, queries, gt, tmp)
+        new_callers["train_ensemble"] = phase_train_ensemble(
+            data, corpus, queries, gt, tmp)
+        new_callers["train_cli"] = phase_train_cli(tmp)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")

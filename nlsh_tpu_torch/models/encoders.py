@@ -5,6 +5,11 @@ load from the JAX package's params with
 :func:`nlsh_tpu_torch.utils.checkpoint.params_from_jax`; JAX keeps a
 layer's ``w`` as ``(fan_in, fan_out)`` and ``nn.Linear`` as
 ``(out, in)``, so the loader transposes.
+
+Construction initialises as ``nn.Linear`` does, from torch's global
+generator; :meth:`init` redraws every weight from an explicit
+``torch.Generator`` with the JAX package's distributions, which is what
+training uses.
 """
 
 from __future__ import annotations
@@ -14,6 +19,26 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+
+@torch.no_grad()
+def uniform_(param: torch.Tensor, bound: float,
+             generator: torch.Generator) -> None:
+    """Fill ``param`` with U(-bound, bound) drawn from ``generator`` (on
+    the generator's device, then copied), so a CPU generator gives the
+    same weights wherever the module lives."""
+    draw = torch.empty(param.shape, dtype=param.dtype,
+                       device=generator.device)
+    param.copy_(draw.uniform_(-bound, bound, generator=generator))
+
+
+def linear_init(layer: nn.Linear, generator: torch.Generator) -> None:
+    """The JAX package's ``_linear_init``: U(+-1/sqrt(fan_in)) for the
+    weight and the bias."""
+    bound = 1.0 / math.sqrt(layer.in_features)
+    uniform_(layer.weight, bound, generator)
+    if layer.bias is not None:
+        uniform_(layer.bias, bound, generator)
 
 
 class MLPEncoder(nn.Module):
@@ -35,6 +60,11 @@ class MLPEncoder(nn.Module):
     @property
     def output_dim(self) -> int:
         return self.hidden_dims[-1]
+
+    def init(self, generator: torch.Generator) -> "MLPEncoder":
+        for layer in self.layers:
+            linear_init(layer, generator)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
@@ -68,14 +98,23 @@ class SirenEncoder(nn.Module):
         )
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
-                fan_in = layer.in_features
-                bound = 1.0 / fan_in if i == 0 else math.sqrt(6.0 / fan_in) / w0
+                bound = self._bound(i)
                 layer.weight.uniform_(-bound, bound)
                 layer.bias.uniform_(-bound, bound)
+
+    def _bound(self, i: int) -> float:
+        fan_in = self.layers[i].in_features
+        return 1.0 / fan_in if i == 0 else math.sqrt(6.0 / fan_in) / self.w0
 
     @property
     def output_dim(self) -> int:
         return self.hidden_dims[-1]
+
+    def init(self, generator: torch.Generator) -> "SirenEncoder":
+        for i, layer in enumerate(self.layers):
+            uniform_(layer.weight, self._bound(i), generator)
+            uniform_(layer.bias, self._bound(i), generator)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         last = len(self.layers) - 1

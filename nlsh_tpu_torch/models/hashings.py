@@ -16,6 +16,12 @@ Port of :mod:`nlsh_tpu.models.hashings`, the inference side
   band, or (``"flip"``) walks the least-confident bands through their
   ranked alternatives.
 
+Each head carries the training surface too: ``output_dim`` (the width
+of ``predict``), ``code_distance`` (the JAX package's default per head:
+L2 for MVB, Cosine for MVB-tanh, CategoricalL2 for Categorical and PQ)
+and :meth:`init`, which redraws every weight from an explicit
+``torch.Generator`` with the JAX package's distributions.
+
 Wherever the JAX package selects with ``lax.top_k`` (lowest index among
 ties) the port sorts stably: ``torch.topk`` promises no order.
 """
@@ -27,20 +33,43 @@ import math
 import torch
 from torch import nn
 
+from nlsh_tpu_torch.models.encoders import linear_init
 from nlsh_tpu_torch.ops import packing
+from nlsh_tpu_torch.ops.code_distances import get_code_distance
 
 
-class MultivariateBernoulli(nn.Module):
+class _Head(nn.Module):
+    """What every head shares: an encoder, an output layer of
+    ``output_dim`` units, a code distance, and :meth:`init`."""
+
+    def __init__(self, encoder: nn.Module, output_dim: int, code_distance):
+        super().__init__()
+        self.encoder = encoder
+        self.out = nn.Linear(encoder.output_dim, output_dim)
+        self.code_distance = code_distance
+
+    @property
+    def output_dim(self) -> int:
+        return self.out.out_features
+
+    def init(self, generator: torch.Generator):
+        """Redraw the encoder's and the output layer's weights from
+        ``generator`` (the JAX package's ``init``, in place)."""
+        self.encoder.init(generator)
+        linear_init(self.out, generator)
+        return self
+
+
+class MultivariateBernoulli(_Head):
     """Per-bit Bernoulli hashing; ``tanh_output`` uses tanh rescaled to
     [0, 1] in place of the sigmoid."""
 
     def __init__(self, encoder: nn.Module, hash_size: int,
-                 tanh_output: bool = False):
-        super().__init__()
-        self.encoder = encoder
+                 code_distance=None, tanh_output: bool = False):
+        super().__init__(encoder, hash_size, code_distance or get_code_distance(
+            "Cosine" if tanh_output else "L2"))
         self.hash_size = hash_size
         self.tanh_output = tanh_output
-        self.out = nn.Linear(encoder.output_dim, hash_size)
 
     @property
     def n_buckets(self) -> int:
@@ -113,15 +142,15 @@ def _ranked(p: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return v[..., :k], i[..., :k]
 
 
-class Categorical(nn.Module):
+class Categorical(_Head):
     """Softmax-over-buckets hashing: ``hash_size`` is the number of
     buckets, and multi-probe takes the ``n_probes`` most probable."""
 
-    def __init__(self, encoder: nn.Module, hash_size: int):
-        super().__init__()
-        self.encoder = encoder
+    def __init__(self, encoder: nn.Module, hash_size: int,
+                 code_distance=None):
+        super().__init__(encoder, hash_size,
+                         code_distance or get_code_distance("CategoricalL2"))
         self.hash_size = hash_size
-        self.out = nn.Linear(encoder.output_dim, hash_size)
 
     @property
     def n_buckets(self) -> int:
@@ -154,21 +183,21 @@ class Categorical(nn.Module):
         return torch.argmax(self.predict(x), dim=-1).to(torch.int32)
 
 
-class ProductQuantization(nn.Module):
+class ProductQuantization(_Head):
     """Learned product-quantisation hashing: the encoder output feeds
     ``n_bands`` independent softmax heads of ``2**bits_per_band``
     sub-codes each.  ``predict`` returns the concatenated band
     probabilities ``(n, n_bands * 2**bits_per_band)``."""
 
-    def __init__(self, encoder: nn.Module, n_bands: int, bits_per_band: int):
-        super().__init__()
-        self.encoder = encoder
+    def __init__(self, encoder: nn.Module, n_bands: int, bits_per_band: int,
+                 code_distance=None):
+        if n_bands * bits_per_band > packing.MAX_BITS:
+            raise ValueError(f"{n_bands * bits_per_band} bits exceed the int32 "
+                             f"packing limit {packing.MAX_BITS}")
+        super().__init__(encoder, n_bands * 2 ** bits_per_band,
+                         code_distance or get_code_distance("CategoricalL2"))
         self.n_bands = n_bands
         self.bits_per_band = bits_per_band
-        if self.hash_size > packing.MAX_BITS:
-            raise ValueError(f"{self.hash_size} bits exceed the int32 packing "
-                             f"limit {packing.MAX_BITS}")
-        self.out = nn.Linear(encoder.output_dim, n_bands * self.band_size)
 
     @property
     def band_size(self) -> int:
@@ -282,14 +311,18 @@ def pq_band_split(hash_size: int) -> tuple[int, int]:
     return hash_size // bits_per_band, bits_per_band
 
 
-def get_hashing(hashing_type: str, encoder: nn.Module, hash_size: int) -> nn.Module:
-    """Factory keyed like the JAX package's ``get_hashing``."""
+def get_hashing(hashing_type: str, encoder: nn.Module, hash_size: int,
+                code_distance=None) -> nn.Module:
+    """Factory keyed like the JAX package's ``get_hashing``;
+    ``code_distance`` (an instance) defaults per head."""
     if hashing_type == "MultivariateBernoulli":
-        return MultivariateBernoulli(encoder, hash_size)
+        return MultivariateBernoulli(encoder, hash_size, code_distance)
     if hashing_type == "MultivariateBernoulliTanh":
-        return MultivariateBernoulli(encoder, hash_size, tanh_output=True)
+        return MultivariateBernoulli(encoder, hash_size, code_distance,
+                                     tanh_output=True)
     if hashing_type == "Categorical":
-        return Categorical(encoder, hash_size)
+        return Categorical(encoder, hash_size, code_distance)
     if hashing_type == "ProductQuantization":
-        return ProductQuantization(encoder, *pq_band_split(hash_size))
+        return ProductQuantization(encoder, *pq_band_split(hash_size),
+                                   code_distance)
     raise ValueError(f"{hashing_type!r} is not a valid hashing type")

@@ -1,3 +1,6 @@
 """Multi-table ensembles (L learned hash tables over one corpus)."""
 
-from nlsh_tpu_torch.parallel.multitable import MultiTableIndexer  # noqa: F401
+from nlsh_tpu_torch.parallel.multitable import (  # noqa: F401
+    MultiTableIndexer,
+    init_multi_table,
+)

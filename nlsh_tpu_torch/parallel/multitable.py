@@ -37,6 +37,8 @@ host-built stacked layout and the lazy host corpus.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -66,6 +68,14 @@ from nlsh_tpu_torch.utils.fingerprint import (
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
 _CAL_MARGIN = 1.1  # calibrate's headroom over the batch's exact need
+
+
+def init_multi_table(hashing: nn.Module, n_tables: int,
+                     generator: torch.Generator) -> list[nn.Module]:
+    """``n_tables`` independent hashings of ``hashing``'s architecture:
+    copies of it, each drawn from ``generator`` in turn (the JAX
+    package's stacked ``init_multi_table``, one module per table)."""
+    return [copy.deepcopy(hashing).init(generator) for _ in range(n_tables)]
 
 
 def _mt_query_chunk(L: int, n_probes: int, budget: int, dim: int) -> int:

@@ -23,6 +23,13 @@ Four parts:
   :mod:`nlsh_tpu.utils.checkpoint`: ``<base>.json`` (the architecture,
   :func:`hashing_config`) next to ``<base>.msgpack`` (the params), so an
   artifact written by either package loads in the other.
+* :func:`save_train_state` / :func:`load_train_state` — the trainer's
+  resume file, the JAX package's ``TrainState`` tree:
+  ``{"params": {"extra", "hashing"}, "opt_state": {"0": {"count", "mu",
+  "nu", "nu_max"}, "1": {} | {"count"}}, "step"}`` (optax's amsgrad
+  state, then the learning-rate schedule's count, ``{}`` for a constant
+  rate), so a ``.state`` file written by either package resumes in the
+  other.
 """
 
 from __future__ import annotations
@@ -241,11 +248,9 @@ def _layer_list(tree) -> list:
     return list(tree)
 
 
-def params_from_jax(hashing: nn.Module, tree: dict) -> nn.Module:
-    """Load a JAX hashing's params (``{"encoder": {"layers": [...]},
-    "out": {...}}``, numpy leaves; the same tree for every head type)
-    into ``hashing`` in place, transposing each ``w``.  Raises on any
-    missing, extra or mis-shaped entry."""
+def _state_dict_from_jax(hashing: nn.Module, tree: dict) -> dict:
+    """A JAX hashing's param tree as ``hashing``'s state dict (``w``
+    transposed).  Raises on any missing, extra or mis-shaped entry."""
     state = {}
 
     def put(prefix: str, layer: dict):
@@ -259,12 +264,23 @@ def params_from_jax(hashing: nn.Module, tree: dict) -> nn.Module:
         put(f"encoder.layers.{i}", layer)
     put("out", tree["out"])
     own = hashing.state_dict()
+    if set(own) != set(state):
+        raise ValueError(f"checkpoint entries {sorted(state)} != module "
+                         f"entries {sorted(own)}")
     for name, value in state.items():
-        if name in own and own[name].shape != value.shape:
+        if own[name].shape != value.shape:
             raise ValueError(
                 f"{name}: checkpoint shape {tuple(value.shape)} != "
                 f"module shape {tuple(own[name].shape)}")
-    hashing.load_state_dict(state, strict=True)
+    return state
+
+
+def params_from_jax(hashing: nn.Module, tree: dict) -> nn.Module:
+    """Load a JAX hashing's params (``{"encoder": {"layers": [...]},
+    "out": {...}}``, numpy leaves; the same tree for every head type)
+    into ``hashing`` in place, transposing each ``w``.  Raises on any
+    missing, extra or mis-shaped entry."""
+    hashing.load_state_dict(_state_dict_from_jax(hashing, tree), strict=True)
     return hashing
 
 
@@ -300,29 +316,36 @@ def stacked_params_from_jax(make_hashing: Callable[[], nn.Module],
             for t in range(n_tables)]
 
 
-def params_to_jax(hashing: nn.Module) -> dict:
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def params_to_jax(hashing: nn.Module, leaf: Callable | None = None) -> dict:
     """The JAX package's param tree of ``hashing`` (numpy f32 leaves,
     ``w`` as ``(fan_in, fan_out)``): the inverse of
-    :func:`params_from_jax`."""
+    :func:`params_from_jax`.  ``leaf(param)`` gives the tensor written in
+    each parameter's place (default: the parameter), e.g. its optimiser
+    moment."""
+    leaf = leaf or (lambda p: p)
 
     def layer(linear: nn.Linear) -> dict:
         # keys in sorted order, as a jax tree map leaves them: the bytes
         # of the file are then the JAX package's for the same params
         out = {}
         if linear.bias is not None:
-            out["b"] = linear.bias.detach().cpu().numpy().astype(np.float32)
-        out["w"] = np.ascontiguousarray(
-            linear.weight.detach().cpu().numpy().T, np.float32)
+            out["b"] = _numpy(leaf(linear.bias))
+        out["w"] = np.ascontiguousarray(_numpy(leaf(linear.weight)).T)
         return out
 
     return {"encoder": {"layers": [layer(m) for m in hashing.encoder.layers]},
             "out": layer(hashing.out)}
 
 
-def stacked_params_to_jax(hashings: list[nn.Module]) -> dict:
+def stacked_params_to_jax(hashings: list[nn.Module],
+                          leaf: Callable | None = None) -> dict:
     """The stacked tree (a leading table axis on every leaf) of an
     ensemble's modules: the inverse of :func:`stacked_params_from_jax`."""
-    trees = [params_to_jax(h) for h in hashings]
+    trees = [params_to_jax(h, leaf) for h in hashings]
 
     def stack(parts):
         if isinstance(parts[0], dict):
@@ -338,22 +361,15 @@ def stacked_params_to_jax(hashings: list[nn.Module]) -> dict:
 # the inference artifact: architecture (json) + params (msgpack)
 # ---------------------------------------------------------------------------
 
-# the JAX package's default code distance of each head: written into the
-# JSON so its loader builds what it would have built; the port does not
-# use it until training is ported
-_DEFAULT_DISTANCE = {"MultivariateBernoulli": "L2", "Categorical":
-                     "CategoricalL2", "ProductQuantization": "CategoricalL2"}
-
-
-def hashing_config(hashing: nn.Module, code_distance: str | None = None) -> dict:
+def hashing_config(hashing: nn.Module) -> dict:
     """A hashing module's architecture as plain JSON, in the JAX
-    package's schema.  ``code_distance`` is written as given (default:
-    the head's default name)."""
+    package's schema, with the registry name of its ``code_distance``."""
     from nlsh_tpu_torch.models.encoders import MLPEncoder
     from nlsh_tpu_torch.models.hashings import (
         MultivariateBernoulli,
         ProductQuantization,
     )
+    from nlsh_tpu_torch.ops.code_distances import code_distance_name
 
     enc = hashing.encoder
     enc_cfg = {"type": type(enc).__name__, "input_dim": enc.input_dim,
@@ -363,12 +379,9 @@ def hashing_config(hashing: nn.Module, code_distance: str | None = None) -> dict
                        with_layernorm=enc.with_layernorm)
     else:
         enc_cfg.update(w0=enc.w0, w0_initial=enc.w0_initial)
-    kind = type(hashing).__name__
-    if code_distance is None:
-        code_distance = "Cosine" if getattr(hashing, "tanh_output", False) \
-            else _DEFAULT_DISTANCE[kind]
-    cfg = {"type": kind, "hash_size": hashing.hash_size, "encoder": enc_cfg,
-           "code_distance": code_distance}
+    cfg = {"type": type(hashing).__name__, "hash_size": hashing.hash_size,
+           "encoder": enc_cfg,
+           "code_distance": code_distance_name(hashing.code_distance)}
     if isinstance(hashing, MultivariateBernoulli):
         cfg["tanh_output"] = hashing.tanh_output
     if isinstance(hashing, ProductQuantization):
@@ -379,22 +392,27 @@ def hashing_config(hashing: nn.Module, code_distance: str | None = None) -> dict
 
 def build_hashing(cfg: dict) -> nn.Module:
     """Rebuild a hashing module (fresh weights) from
-    :func:`hashing_config` output; ``code_distance`` is ignored."""
+    :func:`hashing_config` output, with the code distance it names (the
+    head's default where it names none)."""
     from nlsh_tpu_torch.models import encoders, hashings
+    from nlsh_tpu_torch.ops.code_distances import get_code_distance
 
     ec = dict(cfg["encoder"])
     enc_cls = {"MLPEncoder": encoders.MLPEncoder,
                "SirenEncoder": encoders.SirenEncoder}[ec.pop("type")]
     ec["hidden_dims"] = tuple(ec["hidden_dims"])
     enc = enc_cls(**ec)
+    dist = get_code_distance(cfg["code_distance"]) \
+        if cfg.get("code_distance") else None
     if cfg["type"] == "ProductQuantization":
         return hashings.ProductQuantization(enc, cfg["n_bands"],
-                                            cfg["bits_per_band"])
+                                            cfg["bits_per_band"], dist)
     if cfg["type"] == "MultivariateBernoulli":
         return hashings.MultivariateBernoulli(
-            enc, cfg["hash_size"], tanh_output=cfg.get("tanh_output", False))
+            enc, cfg["hash_size"], dist,
+            tanh_output=cfg.get("tanh_output", False))
     if cfg["type"] == "Categorical":
-        return hashings.Categorical(enc, cfg["hash_size"])
+        return hashings.Categorical(enc, cfg["hash_size"], dist)
     raise ValueError(f"unknown hashing type {cfg['type']!r}")
 
 
@@ -406,7 +424,7 @@ def _artifact_base(base_path) -> str:
     return base
 
 
-def save_model(base_path, hashing, code_distance: str | None = None) -> None:
+def save_model(base_path, hashing) -> None:
     """Export ``<base>.json`` + ``<base>.msgpack``.  ``hashing`` is one
     module, or a list of modules of one architecture (an ensemble): the
     params are then stacked on a leading table axis and the JSON carries
@@ -415,11 +433,11 @@ def save_model(base_path, hashing, code_distance: str | None = None) -> None:
     base = Path(base_path)
     base.parent.mkdir(parents=True, exist_ok=True)
     if isinstance(hashing, (list, tuple)):
-        cfg = hashing_config(hashing[0], code_distance)
+        cfg = hashing_config(hashing[0])
         cfg["n_tables"] = len(hashing)
         tree = stacked_params_to_jax(list(hashing))
     else:
-        cfg = hashing_config(hashing, code_distance)
+        cfg = hashing_config(hashing)
         tree = params_to_jax(hashing)
     Path(str(base) + ".json").write_text(json.dumps(cfg, indent=2))
     write_msgpack(str(base) + ".msgpack", tree)
@@ -443,3 +461,111 @@ def load_model(base_path, *, device):
                              f"its params hold {len(hashings)}")
         return [h.to(device).eval() for h in hashings]
     return params_from_jax(build_hashing(cfg), tree).to(device).eval()
+
+
+# ---------------------------------------------------------------------------
+# the trainer's resume file: the JAX package's TrainState tree
+# ---------------------------------------------------------------------------
+
+def _extra_tree(extra: dict, leaf: Callable) -> dict:
+    return {key: _extra_tree(v, leaf) if isinstance(v, dict)
+            else _numpy(leaf(v)) for key, v in sorted(extra.items())}
+
+
+def _params_tree(params: dict, leaf: Callable) -> dict:
+    """``{"extra", "hashing"}`` of a trainer's params (one module or a
+    list of modules, and the extra params' nested dict of tensors), with
+    ``leaf(param)`` in each parameter's place."""
+    h = params["hashing"]
+    hashing = stacked_params_to_jax(h, leaf) if isinstance(h, (list, tuple)) \
+        else params_to_jax(h, leaf)
+    return {"extra": _extra_tree(params["extra"], leaf), "hashing": hashing}
+
+
+def _tree_values(params: dict, tree: dict) -> dict:
+    """The inverse of :func:`_params_tree`: ``{id(param): tensor}`` for
+    every parameter of ``params`` from a JAX-layout tree.  Raises where
+    the tree does not fit."""
+    out = {}
+    h = params["hashing"]
+    modules = list(h) if isinstance(h, (list, tuple)) else [h]
+    if isinstance(h, (list, tuple)):
+        sizes = {np.shape(leaf)[0] for leaf in _leaves(tree["hashing"])}
+        if sizes != {len(modules)}:
+            raise ValueError(f"the state holds {sizes} tables, the trainer "
+                             f"{len(modules)}")
+        subtrees = [_table_slice(tree["hashing"], t)
+                    for t in range(len(modules))]
+    else:
+        subtrees = [tree["hashing"]]
+    for module, sub in zip(modules, subtrees):
+        state = _state_dict_from_jax(module, sub)
+        for name, p in module.named_parameters():
+            out[id(p)] = state[name]
+
+    def walk(extra: dict, sub: dict, path: str):
+        if set(extra) != set(sub):
+            raise ValueError(f"extra params{path}: {sorted(sub)} in the "
+                             f"state, {sorted(extra)} in the trainer")
+        for key, v in extra.items():
+            if isinstance(v, dict):
+                walk(v, sub[key], f"{path}.{key}")
+            else:
+                value = torch.from_numpy(np.array(sub[key], np.float32))
+                if value.shape != v.shape:
+                    raise ValueError(f"extra{path}.{key}: shape "
+                                     f"{tuple(value.shape)} != {tuple(v.shape)}")
+                out[id(v)] = value
+
+    walk(params["extra"], tree["extra"], "")
+    return out
+
+
+def save_train_state(path, state) -> None:
+    """Write a trainer's ``TrainState`` (its ``params``, its amsgrad
+    ``opt_state`` and ``step``) as the JAX package's ``.state`` file:
+    the same tree, keys in the order a jax tree map leaves them."""
+    opt = state.opt_state
+
+    def tree(values) -> dict:
+        by_id = {id(p): v for p, v in zip(opt.params, values)}
+        return _params_tree(state.params, lambda p: by_id[id(p)])
+
+    schedule = {} if opt.schedule_count is None else \
+        {"count": np.asarray(opt.schedule_count, np.int32)}
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    write_msgpack(p, {
+        "params": tree(opt.params),
+        "opt_state": {"0": {"count": np.asarray(opt.count, np.int32),
+                            "mu": tree(opt.mu), "nu": tree(opt.nu),
+                            "nu_max": tree(opt.nu_max)},
+                      "1": schedule},
+        "step": np.asarray(state.step, np.int32),
+    })
+
+
+@torch.no_grad()
+def load_train_state(path, state):
+    """Resume ``state`` in place from a ``.state`` file of either package
+    (params, amsgrad moments and counts, step); returns it.  Raises where
+    the file does not fit the trainer (architecture, table count, extra
+    params, a schedule's count against a constant rate)."""
+    tree = read_msgpack(path)
+    opt = state.opt_state
+    schedule = tree["opt_state"]["1"]
+    if bool(schedule) != (opt.schedule_count is not None):
+        raise ValueError("the state's learning rate is "
+                         f"{'a schedule' if schedule else 'constant'}, the "
+                         "trainer's is not")
+    for name, bufs in (("params", opt.params), ("mu", opt.mu),
+                       ("nu", opt.nu), ("nu_max", opt.nu_max)):
+        sub = tree["params"] if name == "params" else tree["opt_state"]["0"][name]
+        values = _tree_values(state.params, sub)
+        for p, buf in zip(opt.params, bufs):
+            buf.copy_(values[id(p)])
+    opt.count = int(tree["opt_state"]["0"]["count"])
+    if schedule:
+        opt.schedule_count = int(schedule["count"])
+    state.step = int(tree["step"])
+    return state

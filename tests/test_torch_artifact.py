@@ -26,6 +26,7 @@ from nlsh_tpu.models import get_hashing as j_hashing
 from nlsh_tpu.parallel.multitable import init_multi_table
 from nlsh_tpu.utils import checkpoint as jckpt
 from nlsh_tpu_torch.models import get_encoder, get_hashing
+from nlsh_tpu_torch.ops.code_distances import get_code_distance
 from nlsh_tpu_torch.utils import checkpoint as tckpt
 
 D = 12
@@ -118,8 +119,7 @@ def test_artifact_saved_by_jax_loads_in_the_port(tmp_path, kind, hash_size,
     assert th.hash_size == jh.hash_size and th.n_buckets == jh.n_buckets
     _assert_hashes_alike(jh, params, th)
     # the port's description of the loaded module is the file's
-    assert tckpt.hashing_config(
-        th, code_distance=tckpt.model_config(base)["code_distance"]) == \
+    assert tckpt.hashing_config(th) == \
         json.loads((tmp_path / "model.json").read_text())
     # either suffix names the same artifact
     for suffix in (".json", ".msgpack"):
@@ -206,13 +206,19 @@ def test_code_distance_is_written_as_given_and_otherwise_ignored(tmp_path):
     assert tckpt.hashing_config(
         get_hashing("Categorical", get_encoder("mlp", D, [8]), 5)
     )["code_distance"] == "CategoricalL2"
-    tckpt.save_model(str(tmp_path / "kl"), th, code_distance="KL")
+    th = get_hashing("MultivariateBernoulli", get_encoder("mlp", D, [8]), 5,
+                     get_code_distance("KL"))
+    tckpt.save_model(str(tmp_path / "kl"), th)
     assert tckpt.model_config(str(tmp_path / "kl"))["code_distance"] == "KL"
     jh, _ = jckpt.load_model(str(tmp_path / "kl"))
     assert type(jh.code_distance).__name__ == "MVBernoulliKLDivergence"
+    # the port's loader builds the distance the artifact names, as JAX's
+    assert type(tckpt.load_model(str(tmp_path / "kl"), device="cpu")
+                .code_distance).__name__ == "MVBernoulliKLDivergence"
     cfg = tckpt.model_config(str(tmp_path / "kl"))
     cfg["code_distance"] = "a distance the port has never heard of"
-    assert isinstance(tckpt.build_hashing(cfg), type(th))
-    cfg["type"] = "Nope"
+    with pytest.raises(ValueError, match="unknown code distance"):
+        tckpt.build_hashing(cfg)
+    cfg["code_distance"], cfg["type"] = "KL", "Nope"
     with pytest.raises(ValueError, match="unknown hashing type"):
         tckpt.build_hashing(cfg)

@@ -16,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(nlsh_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nlsh_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "nlsh_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -35,5 +36,9 @@ def test_port_imports_no_jax():
                  "utils.checkpoint", "utils.metrics", "utils.fingerprint",
                  "utils.env", "ops.knn", "data", "data.datasets",
                  "data.binformats", "cli", "cli.serve", "tools.topk_phases",
-                 "tools.panel_variants", "tools.fixed_events"):
+                 "tools.panel_variants", "tools.fixed_events",
+                 "ops.code_distances", "utils.loggers", "train", "train.base",
+                 "train.triplet", "train.siamese", "train.proposed",
+                 "train.ae", "train.vqvae", "train.multitable", "cli.train",
+                 "cli.precompute"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]
