@@ -61,6 +61,33 @@ Then the serving process, on the same workload, each phase one line:
   ``serve_loop`` on the restored full-size index with 200 requests and a
   malformed line; its ``stats`` (QPS, latency p50 / p95 / max).
 
+Then offline evaluation, each phase one line, timed with
+``utils.profiling.PhaseTimer``:
+
+* ``eval_flip``: ``cli.evaluate.run_sweep`` on the grouped engine (K1),
+  flip probes 1..16 at the largest bucket's probe budget (no bucket
+  cut): every (candidates, recall) pair within 0.01 / 0.001 of the JAX
+  package's exact-f32 CPU values (``eval_anchor.py``);
+* ``eval_sample``: the reference's own sweep, sampled probes 1..100 (seed
+  0) on the grouped engine: the curve, ``sweep_s`` and ms per value; one
+  probe equals ``eval_flip``'s, candidates never fall, recall(100) >=
+  recall(1); on the same raw codes at 1, 16 and 100 probes the windowed
+  (K3), fixed-cap (K5) and gather engines give the grouped engine's
+  candidates and its ids on >= 0.999 of the slots; each engine's ms per
+  value at 100 probes, and K5's whole call on those 100 probes' events;
+* ``eval_ensemble``: ``run_sweep_multitable`` on the 8-table params,
+  flip, 1..4 probes per table, windowed engine (K3), against the JAX
+  package's CPU values;
+* ``eval_cli``: ``cli.evaluate.main`` on the synthetic dataset for a
+  single-table and an 8-table artifact of seeded heads, on the card and
+  on the CPU: the printed lines are identical;
+* ``hnsw``: ``native.NativeHNSW`` on the first 16,384 corpus rows, 1,000
+  queries, cosine, M=10, ef_construction=500, ef 40 and 100, against
+  the exact kNN from ``ops.knn.knn`` on the card: recall and mean visit
+  count equal the JAX package's (``eval_anchor.py``); ``build_s`` and
+  QPS are the host's; then ``cli.train --learner_type hnsw`` on the
+  synthetic dataset.
+
 Then training, at the bench's training configuration (SIREN
 100->256->256, 12-bit MVB, triplet with margin 0.5, positive_k 20 and
 balance lambda 1.5, batch 2048, lr 1e-3, seed 0) on its 131,072-row
@@ -2115,6 +2142,330 @@ def phase_serve_cli(restored, queries: np.ndarray, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# offline evaluation: the multi-probe sweep and the HNSW baseline
+# ---------------------------------------------------------------------------
+
+# The JAX package's exact-f32 CPU values of the sweeps and the HNSW graph
+# at these phases' configurations, from
+# `JAX_PLATFORMS=cpu python3 eval_anchor.py` (its --parts as noted):
+# (avg_n_candidates, recall) per probe count.
+EVAL_FLIP_PROBES = 16
+EVAL_FLIP_QUERIES = 10_000           # eval_anchor.py --parts flip
+EVAL_FLIP = (
+    (301.1147, 0.19230999052524567), (599.2901, 0.3240800201892853),
+    (892.4784, 0.40971001982688904), (1184.6225, 0.4711399972438812),
+    (1477.1289, 0.5278100371360779), (1767.8122, 0.5678200125694275),
+    (2058.0718, 0.5958400368690491), (2349.2184, 0.6169999837875366),
+    (2639.565, 0.6528300046920776), (2929.3914, 0.6769700050354004),
+    (3220.4846, 0.6945499777793884), (3510.0792, 0.7075999975204468),
+    (3800.292, 0.7209299802780151), (4089.4288, 0.7297099828720093),
+    (4379.365, 0.7370700240135193), (4670.3042, 0.7426600456237793),
+)
+EVAL_ENSEMBLE_QUERIES = 10_000       # eval_anchor.py --parts ensemble
+EVAL_ENSEMBLE = (
+    (2299.4142, 0.8211899399757385), (4491.2513, 0.9537599682807922),
+    (6683.2156, 0.9828399419784546), (8881.7637, 0.9921099543571472),
+)
+EVAL_CAND_TOL, EVAL_RECALL_TOL = 0.01, 0.001
+EVAL_SAMPLE_PROBES = 100             # the reference's own eval.py sweep
+EVAL_SAMPLE_CHECKS = (1, 16, 100)    # probe counts held across engines
+EVAL_CLI_PROBES = 16
+# NativeHNSW on the first 16,384 corpus rows, 1,000 queries, cosine,
+# M=10, ef_construction=500 (eval_anchor.py --parts hnsw): recall@10
+# against the exact kNN of those rows and the mean visit count per ef
+HNSW_ROWS, HNSW_QUERIES = 16_384, 1_000
+HNSW_REF = {
+    40: (0.9527999758720398, 613.065),
+    100: (0.9773999452590942, 1305.051),
+}
+
+
+def _sweep_rows_check(name: str, rows, want, n_queries: int) -> float:
+    """Each row against the JAX package's (candidates, recall); returns
+    the largest recall difference."""
+    check(len(rows) == len(want), f"{name}: {len(rows)} rows")
+    worst = 0.0
+    for r, (cand, recall) in zip(rows, want):
+        check(abs(r["avg_n_candidates"] - cand) <= EVAL_CAND_TOL
+              and abs(r["recall"] - recall) <= EVAL_RECALL_TOL,
+              f"{name} at {r['n_probes']} probes on {n_queries} queries: "
+              f"{r['avg_n_candidates']}, {r['recall']} against the JAX "
+              f"package's {cand}, {recall}")
+        worst = max(worst, abs(r["recall"] - recall))
+    return worst
+
+
+def _pairs(rows) -> list:
+    return [[r["avg_n_candidates"], r["recall"]] for r in rows]
+
+
+def phase_eval_flip(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray):
+    """``run_sweep`` on the grouped engine (K1), flip probes 1..16, over the
+    whole corpus and 10,000 queries with the committed params: every
+    row against the JAX package's CPU values.  Returns the rows and the
+    launches."""
+    from nlsh_tpu_torch.cli.evaluate import run_sweep
+    from nlsh_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    reset_launches()
+    with timer("sweep"):
+        rows = run_sweep(load_hashing(), corpus, queries, gt, K,
+                         max_probes=EVAL_FLIP_PROBES, engine="pallas-grouped",
+                         probe_mode="flip", device=DEVICE)
+    launches = read_launches("grouped_scores_topk")
+    check(queries.shape[0] == EVAL_FLIP_QUERIES, "eval_flip's queries")
+    worst = _sweep_rows_check("eval_flip", rows, EVAL_FLIP, EVAL_FLIP_QUERIES)
+    emit("eval_flip", engine="grouped", n_queries=int(queries.shape[0]),
+         rows=_pairs(rows), max_recall_diff=worst, launches=launches,
+         launches_per_value=launches["grouped_scores_topk"] / len(rows),
+         sweep_s=timer.totals["sweep"], phases=timer.summary())
+    return rows, launches
+
+
+def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+                      flip_rows) -> dict:
+    """The reference's own sweep: sampled probes (seed 0), 1..100, on the
+    grouped engine (K1), timed.  Then on the same raw codes at 1, 16 and
+    100 probes the windowed (K3), fixed-cap (K5) and gather engines
+    against the grouped one: candidates identical, ids on >= 0.999 of
+    the slots (``bench.py``'s engine gates), each engine's ms per sweep
+    value at 100 probes, and K5's whole wrapper call on the events of
+    100 probes.  Returns the launches."""
+    import torch
+
+    from nlsh_tpu_torch.cli import evaluate as ev
+    from nlsh_tpu_torch.index import build_bucket_table, hash_corpus
+    from nlsh_tpu_torch.ops import packing
+    from nlsh_tpu_torch.ops.cuda import bounds
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools.fixed_events import fixed_events
+    from nlsh_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    hashing = load_hashing().to(DEVICE).eval()
+    c = torch.as_tensor(corpus, device=DEVICE)
+    q = torch.as_tensor(queries, device=DEVICE)
+    raw = ev.sample_probe_codes(
+        hashing, q, EVAL_SAMPLE_PROBES,
+        torch.Generator(device=DEVICE).manual_seed(0))
+    reset_launches()
+    with timer("sweep"):
+        rows = ev.run_sweep(hashing, c, q, gt, K,
+                            max_probes=EVAL_SAMPLE_PROBES,
+                            engine="pallas-grouped", seed=0, device=DEVICE)
+    launches = read_launches("grouped_scores_topk")
+    cands = [r["avg_n_candidates"] for r in rows]
+    check(rows[0] == flip_rows[0],
+          f"one sampled probe {rows[0]} != one flip probe {flip_rows[0]}")
+    check(all(b >= a for a, b in zip(cands, cands[1:])),
+          "sampled sweep: candidates fell as probes grew")
+    check(rows[-1]["recall"] >= rows[0]["recall"], "recall(100) < recall(1)")
+
+    with timer("table"):
+        table = build_bucket_table(hash_corpus(hashing, c),
+                                   hashing.n_buckets)
+    budget = table.max_count()
+    steps, per_value_ms, agree = {}, {}, {}
+    for engine in ("grouped", "windowed", "fixed", "gather"):
+        with timer(f"layout_{engine}"):
+            steps[engine] = ev.sweep_step(table, c, q, raw, K, budget,
+                                          "cosine", engine)
+    reset_launches()
+    for n in EVAL_SAMPLE_CHECKS:
+        ids_g, cand_g = steps["grouped"](n)
+        check(float(np.mean(cand_g.cpu().numpy()))
+              == rows[n - 1]["avg_n_candidates"],
+              f"the sweep's own draw differs from seed 0's at {n} probes")
+        for engine in ("windowed", "fixed", "gather"):
+            ids, cand = steps[engine](n)
+            check(bool(torch.equal(cand, cand_g)),
+                  f"{engine} candidates differ from grouped at {n} probes")
+            a = id_agreement(ids_g.cpu().numpy(), ids.cpu().numpy())
+            check(a >= 0.999, f"{engine} vs grouped ids {a} at {n} probes")
+            agree[f"{engine}_{n}"] = a
+    engine_launches = read_launches("windowed_scores_topk",
+                                    "bucket_scores_auto")
+    for engine, step in steps.items():
+        per_value_ms[engine] = 1e3 * _timed_passes(
+            lambda: step(EVAL_SAMPLE_PROBES), 3)["median_s"]
+
+    # K5 at the sweep's widest events: every query's 100 sampled probes,
+    # on the fixed-cap engine's layout
+    lay = qk.serving_layout(table, c, metric="cosine", cap=budget)
+    pid, pv = packing.dedupe_codes(raw)
+    qe = qk.extend_queries(lay, q)
+    block_idx, starts, counts = fixed_events(lay, pid, pv)
+    five = (lay.data, qe, block_idx, counts, lay.cap)
+    k5 = qk.bucket_scores_auto(*five)
+    sub = slice(0, 1000)  # the plain version on the first 1,000 queries
+    plain = (lay.data, qe[sub], block_idx[sub], counts[sub], lay.cap)
+    p5 = qk.bucket_scores_auto_plain(*plain)
+    err = _masked_err("K5 at 100 probes", k5[sub], p5, False)
+    del k5, p5
+    k5_times = kernel_entry(
+        err, cuda_ms(lambda: qk.bucket_scores_auto(*five), 5),
+        cuda_ms(lambda: qk.bucket_scores_auto_plain(*plain), 1),
+        bounds.bucket_counts(lay.data, qe, starts, counts, lay.cap,
+                             q.shape[1]), None, NO_LIBRARY_BUCKET)
+    k5_times.update(plain_note="plain_ms on the first 1,000 queries only",
+                    n_events=int(pv.sum()), event_slots=pid.numel(),
+                    cap=lay.cap, live_rows=int(counts.sum()),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit("eval_sample", engine="grouped", n_queries=int(q.shape[0]),
+         probe_budget=budget, rows=_pairs(rows), sweep_s=timer.totals["sweep"],
+         ms_per_value=timer.totals["sweep"] * 1e3 / len(rows),
+         ms_per_value_at_100=per_value_ms, agreement=agree,
+         launches=launches, engine_launches=engine_launches,
+         k5_at_100_probes=k5_times, phases=timer.summary())
+    launches.update(engine_launches)
+    return launches
+
+
+def phase_eval_ensemble(corpus: np.ndarray, queries: np.ndarray,
+                        gt: np.ndarray) -> dict:
+    """``run_sweep_multitable`` on the committed 8-table params, flip
+    probes, 32 in all (4 per table), on the windowed engine (K3):
+    ``ht = 1..4`` against the JAX package's CPU values."""
+    from nlsh_tpu_torch.cli.evaluate import run_sweep_multitable
+    from nlsh_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    nq = EVAL_ENSEMBLE_QUERIES
+    reset_launches()
+    with timer("sweep"):
+        rows = run_sweep_multitable(
+            load_ensemble(), corpus, queries[:nq], gt[:nq], K, 8,
+            max_probes=32, engine="pallas-windowed", probe_mode="flip",
+            device=DEVICE)
+    launches = read_launches("windowed_scores_topk")
+    check([r["hash_times"] for r in rows] == [1, 2, 3, 4], "ht 1..4")
+    worst = _sweep_rows_check("eval_ensemble", rows, EVAL_ENSEMBLE, nq)
+    emit("eval_ensemble", engine="windowed", n_queries=nq, rows=_pairs(rows),
+         max_recall_diff=worst, launches=launches,
+         sweep_s=timer.totals["sweep"], phases=timer.summary())
+    return launches
+
+
+def phase_eval_cli(tmp: str) -> dict:
+    """``python3 -m nlsh_tpu_torch.cli.evaluate`` (its ``main``) on the
+    synthetic dataset, for a single-table and an 8-table artifact of
+    seeded heads written by the port's ``save_model``, flip probes, on
+    the card with its defaults (``auto``: the fixed-cap engine, the
+    windowed one for the ensemble) and on the CPU with the same engine:
+    the printed lines are identical.  (The CPU's own ``auto``, the gather
+    engine, ranks one near-tie of this set the other way.)  Returns the
+    card runs' launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from nlsh_tpu_torch.cli import evaluate as cli
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+    from nlsh_tpu_torch.parallel.multitable import init_multi_table
+    from nlsh_tpu_torch.utils.checkpoint import save_model
+    from nlsh_tpu_torch.utils.profiling import PhaseTimer
+
+    os.environ["NLSH_SYNTH_CACHE_DIR"] = os.path.join(tmp, "synth_cache")
+    gen = torch.Generator().manual_seed(0)
+    head = get_hashing("MultivariateBernoulli",
+                       get_encoder("siren", 32, [256, 256]), 12).init(gen)
+    save_model(os.path.join(tmp, "eval_single"), head)
+    save_model(os.path.join(tmp, "eval_t8"), init_multi_table(head, 8, gen))
+    check(cli.nlsh_eval_argparse().parse_args(
+        ["--model_path", "m", "--data_id", "d"]).device == "cuda",
+        "the evaluation CLI defaults to the card")
+    timer = PhaseTimer()
+    out, launches = {}, {}
+    for name in ("eval_single", "eval_t8"):
+        argv = ["--model_path", os.path.join(tmp, name), "--data_id",
+                "synthetic", "--probe_mode", "flip", "--max_probes",
+                str(EVAL_CLI_PROBES), "--json_out",
+                os.path.join(tmp, name + ".jsonl")]
+        # the card's default engine (auto) and the same engine on the CPU
+        engine = "fixed" if name == "eval_single" else "windowed"
+        lines = []
+        for device, extra in ((DEVICE, []), ("cpu", ["--engine", engine])):
+            printed = io.StringIO()
+            reset_launches()
+            with timer(f"{name}_{device}"), contextlib.redirect_stdout(printed):
+                cli.main(argv + ["--device", device] + extra)
+            if not lines:
+                launches[name] = read_launches(
+                    "bucket_scores_auto" if name == "eval_single"
+                    else "windowed_scores_topk")
+            lines.append(printed.getvalue().splitlines())
+        n_rows = EVAL_CLI_PROBES // (8 if name == "eval_t8" else 1)
+        check(len(lines[0]) == n_rows and lines[0] == lines[1],
+              f"{name}: the card's lines {lines[0]} != the CPU's {lines[1]}")
+        out[name] = lines[0]
+    merged = {}
+    for got in launches.values():
+        merged.update(got)
+    emit("eval_cli", lines=out, launches=launches, phases=timer.summary())
+    return merged
+
+
+def phase_hnsw(corpus: np.ndarray, queries: np.ndarray, tmp: str) -> None:
+    """``NativeHNSW`` (built with ``g++`` on this host) on the first 16,384
+    corpus rows in row order, 1,000 queries, cosine, M=10,
+    ef_construction=500, at ef 40 and 100, against the exact kNN of those
+    rows from ``ops.knn.knn`` on the card: recall and the mean visit
+    count equal the JAX package's.  ``build_s`` and QPS are the host's.
+    Then ``cli.train --learner_type hnsw`` on the synthetic dataset."""
+    import contextlib
+    import io
+    import platform
+
+    from nlsh_tpu_torch import native
+    from nlsh_tpu_torch.cli import train as train_cli
+    from nlsh_tpu_torch.ops.knn import knn
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+    from nlsh_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    rows, qs = corpus[:HNSW_ROWS], queries[:HNSW_QUERIES]
+    with timer("exact_knn"):
+        _, exact = knn(qs, rows, K, metric="cosine", device=DEVICE)
+    exact = exact.cpu().numpy()
+    with timer("native_build"):
+        native.load_library()
+    idx = native.NativeHNSW(space="cosine", dim=rows.shape[1])
+    idx.init_index(max_elements=HNSW_ROWS, M=10, ef_construction=500)
+    with timer("build"):
+        idx.add_items(rows)
+    out = {}
+    for ef, (want_recall, want_visits) in HNSW_REF.items():
+        idx.set_ef(ef)
+        t0 = time.perf_counter()
+        ids, _, counts = idx.knn_query(qs, k=K)
+        query_s = time.perf_counter() - t0
+        recall = float(calculate_recall(exact, ids, np.mean))
+        visits = float(np.mean(counts))
+        check(abs(recall - want_recall) <= 1e-6
+              and abs(visits - want_visits) <= 1e-6,
+              f"HNSW at ef {ef}: recall {recall}, visits {visits} against "
+              f"the JAX package's {want_recall}, {want_visits}")
+        out[f"ef{ef}"] = {"recall": recall, "mean_visits": visits,
+                          "host_qps": HNSW_QUERIES / query_s}
+    os.environ["NLSH_SYNTH_CACHE_DIR"] = os.path.join(tmp, "synth_cache")
+    with timer("train_cli"), contextlib.redirect_stdout(io.StringIO()):
+        cli_recall = train_cli.main(["--data_id", "synthetic",
+                                     "--learner_type", "hnsw", "--debug",
+                                     "--device", DEVICE])
+    check(0.9 < cli_recall <= 1.0, f"cli.train hnsw recall {cli_recall}")
+    emit("hnsw", rows=HNSW_ROWS, queries=HNSW_QUERIES, M=10,
+         ef_construction=500, host_build_s=timer.totals["build"],
+         host=f"{platform.machine()} {platform.processor() or ''}".strip(),
+         cxx=subprocess.run([native._cxx(), "--version"], capture_output=True,
+                            text=True).stdout.splitlines()[0],
+         train_cli_recall=float(cli_recall), note="build_s and QPS are the "
+         "host's (one thread), not the card's", **out,
+         phases=timer.summary())
+
+
+# ---------------------------------------------------------------------------
 # training: the bench's training configuration at full width
 # ---------------------------------------------------------------------------
 
@@ -2524,6 +2875,16 @@ def main() -> int:
         new_callers["heads"] = phase_heads(corpus, queries)
         new_callers["serve_cli"] = phase_serve_cli(restored, queries, tmp)
         del restored
+
+        # offline evaluation: the sweep on every engine, and the HNSW
+        # baseline
+        flip_rows, new_callers["eval_flip"] = phase_eval_flip(corpus, queries,
+                                                              gt)
+        new_callers["eval_sample"] = phase_eval_sample(corpus, queries, gt,
+                                                       flip_rows)
+        new_callers["eval_ensemble"] = phase_eval_ensemble(corpus, queries, gt)
+        new_callers["eval_cli"] = phase_eval_cli(tmp)
+        phase_hnsw(corpus, queries, tmp)
 
         # training at the bench's configuration, on its subset
         data = bench._BenchData(corpus[sub_idx], queries[:256], gt[:256],

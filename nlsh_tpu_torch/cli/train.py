@@ -4,10 +4,11 @@
         [--learner_type triplet] [--n_tables 8] [--device cuda]
 
 The JAX package's flags, defaults and hashing-type / distance rules, plus
-``--device`` (default ``cuda``; ``cpu`` runs on the CPU).  Not ported
-yet: ``--learner_type hnsw`` (the HNSW baseline and ``native/``) and
-``--n_devices`` above 1 (data-parallel training, the multi-GPU slice);
-both raise.
+``--device`` (default ``cuda``; ``cpu`` runs on the CPU).
+``--learner_type hnsw`` builds the HNSW baseline on the host (the
+dataset's ground truth is computed on ``--device``).  Not ported yet:
+``--n_devices`` above 1 (data-parallel training, the multi-GPU slice),
+which raises.
 """
 
 from __future__ import annotations
@@ -200,15 +201,14 @@ def get_learner_from_args(args, hashing, data, logger, model_save_dir):
     if args.learner_type == "ae":
         logger.meta(params={"learner_type": "ae"})
         return T.AETrainer(hashing, data, model_save_dir, logger)
+    if args.learner_type == "hnsw":
+        logger.meta(params={"learner_type": "hnsw"})
+        return T.HNSWBaseline(data, logger, seed=args.seed)
     raise RuntimeError(f"unknown learner {args.learner_type}")
 
 
 def main(argv: list[str] | None = None):
     args = nlsh_argparse().parse_args(argv)
-    if args.learner_type == "hnsw":
-        raise NotImplementedError(
-            "--learner_type hnsw: the HNSW baseline (train/hnsw.py and "
-            "native/) is not ported yet")
     if args.n_devices is not None and args.n_devices > 1:
         raise NotImplementedError(
             "--n_devices > 1: data-parallel training is not ported yet (the "

@@ -28,14 +28,35 @@ ties) the port sorts stably: ``torch.topk`` promises no order.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 from torch import nn
 
 from nlsh_tpu_torch.models.encoders import linear_init
 from nlsh_tpu_torch.ops import packing
 from nlsh_tpu_torch.ops.code_distances import get_code_distance
+
+
+def flip_probe_ids(p: torch.Tensor, n_probes: int) -> torch.Tensor:
+    """Best-first bit-flip probes of per-bit probabilities ``p (n, bits)``:
+    ``(n, n_probes)`` int32 bucket ids, probe ``m`` the hard code with
+    the subset ``m`` of its ceil(log2(n_probes)) least-confident bits
+    flipped (mask 0 = the hard code), not deduped.  The probes are
+    nested prefixes as ``n_probes`` grows."""
+    bits = p.shape[-1]
+    n_flip = min(max(int(np.ceil(np.log2(n_probes))), 1), bits)
+    base = packing.pack_bits((p > 0.5).to(torch.int32))
+    conf = torch.abs(p - 0.5)
+    # the JAX package takes lax.top_k(-conf), which keeps the lowest bit
+    # index among equal confidences; a stable ascending sort does the
+    # same (torch.topk promises no order among ties)
+    flip_pos = torch.sort(conf, dim=1, stable=True).indices[:, :n_flip]
+    weights = (1 << (bits - 1 - flip_pos)).to(torch.int32)
+    masks = torch.arange(n_probes, dtype=torch.int32, device=p.device)
+    shifts = torch.arange(n_flip, dtype=torch.int32, device=p.device)
+    take = (masks[None, :, None] >> shifts) & 1           # (1, P, n_flip)
+    xor = torch.sum(take * weights[:, None, :], dim=-1, dtype=torch.int32)
+    return torch.bitwise_xor(base[:, None], xor)
 
 
 class _Head(nn.Module):
@@ -113,22 +134,7 @@ class MultivariateBernoulli(_Head):
         return packing.hash_codes(codes)
 
     def _hash_flip(self, p: torch.Tensor, n_probes: int):
-        """Flip subsets of the ceil(log2(n_probes)) least-confident bits of
-        the hard code, enumerated by flip mask (mask 0 = the hard code)."""
-        bits = self.hash_size
-        n_flip = min(max(math.ceil(math.log2(n_probes)), 1), bits)
-        base = packing.pack_bits((p > 0.5).to(torch.int32))
-        conf = torch.abs(p - 0.5)
-        # the JAX package takes lax.top_k(-conf), which keeps the lowest
-        # bit index among equal confidences; a stable ascending sort does
-        # the same (torch.topk promises no order among ties)
-        flip_pos = torch.sort(conf, dim=1, stable=True).indices[:, :n_flip]
-        weights = (1 << (bits - 1 - flip_pos)).to(torch.int32)
-        masks = torch.arange(n_probes, dtype=torch.int32, device=p.device)
-        shifts = torch.arange(n_flip, dtype=torch.int32, device=p.device)
-        take = (masks[None, :, None] >> shifts) & 1       # (1, P, n_flip)
-        xor = torch.sum(take * weights[:, None, :], dim=-1, dtype=torch.int32)
-        return packing.dedupe_codes(torch.bitwise_xor(base[:, None], xor))
+        return packing.dedupe_codes(flip_probe_ids(p, n_probes))
 
     def hash_hard(self, x: torch.Tensor) -> torch.Tensor:
         """Deterministic single bucket id per row: ``(n,)`` int32."""

@@ -10,7 +10,10 @@ def recall_matrix(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     """Per-query recall ``|true ∩ pred| / k_true`` as ``(n,)`` float32.
     Predicted ids < 0 are padding and never match."""
     matches = (y_true[:, :, None] == y_pred[:, None, :]) & (y_true[:, :, None] >= 0)
-    return torch.any(matches, dim=-1).to(torch.float32).mean(dim=-1)
+    hits = torch.any(matches, dim=-1).to(torch.float32)
+    # the sum times the f32 reciprocal of k_true, as XLA computes jnp.mean
+    # (a true division rounds 9 / 10 one ulp below 9 * 0.1)
+    return hits.sum(dim=-1) * (1.0 / hits.shape[-1])
 
 
 def calculate_recall(y_true, y_pred, reduce_func=None):

@@ -40,5 +40,6 @@ def test_port_imports_no_jax():
                  "ops.code_distances", "utils.loggers", "train", "train.base",
                  "train.triplet", "train.siamese", "train.proposed",
                  "train.ae", "train.vqvae", "train.multitable", "cli.train",
-                 "cli.precompute"):
+                 "cli.precompute", "cli.evaluate", "native", "train.hnsw",
+                 "utils.profiling"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]

@@ -118,8 +118,15 @@ def test_a_run_logs_checkpoints_serves_and_resumes(tmp_path):
 
 def test_unported_and_invalid_requests_raise(tmp_path):
     common = TINY + ["--debug", "--model_save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="hnsw"):
-        main(common + ["--learner_type", "hnsw"])
+    # the HNSW baseline runs on the synthetic dataset and logs its recall
+    recall = main(TINY + ["--learner_type", "hnsw", "--logger_type", "jsonl",
+                          "--model_save_dir", str(tmp_path)])
+    (log,) = os.listdir(os.environ["NLSH_LOG_DIR"])
+    with open(os.path.join(os.environ["NLSH_LOG_DIR"], log)) as f:
+        logged = {r["name"]: r["value"] for r in map(json.loads, f)
+                  if r.get("kind") == "metric"}
+    assert set(logged) == {"test/recall", "test/query_size", "test/qps"}
+    assert logged["test/recall"] == pytest.approx(recall) and recall > 0.9
     with pytest.raises(NotImplementedError, match="n_devices"):
         main(common + ["--n_devices", "2"])
     with pytest.raises(RuntimeError, match="not valid"):
