@@ -114,6 +114,32 @@ each phase one line:
   dataset with the JSONL logger: its checkpoint loads and serves, and
   ``--resume_from`` continues at the saved step.
 
+Then the multi-device layer, on the one card through meshes that name it
+more than once (the entries run one after another), each phase one line:
+
+* ``ensemble_sharded`` (after ``ensemble_int8``): the committed 8-table
+  ensemble over 4 entries (2 tables each) on the windowed (K3), grouped
+  (K1) and fixed-cap (K5) engines: ids >= 0.999 of the unsharded serve's,
+  recall and summed candidates in the ensemble's windows; the gather
+  engine's psum of distinct counts >= the exact count (1,000 queries);
+* ``train_dp``: the bench's training step over 2 entries of the card
+  against the same data-parallel runner over 2 CPU entries (step 1's
+  loss and gradients rtol 1e-4, 20 losses rtol 1e-3);
+* ``sharded``: ``ShardedIndexer`` over one entry and over 4, on the
+  grouped, windowed, fixed-cap and gather engines: recall and candidates
+  in the single table's windows and equal per query to an ``Indexer``
+  at the largest bucket's cap, ids >= 0.999; per-row int8 grouped in the
+  int8 window; ``save``/``load`` at 4 entries, refused on one;
+* ``config5``: ``benchmarks/configs.py``'s deep-image-96 10M x 96 (seed
+  0), exact ground truth on the card, a 14-bit SIREN fitted as
+  ``config_5`` fits it through ``fit(mesh=make_mesh(axis="data"))``,
+  and the bf16 grouped serve at 16 flip probes, lazy corpus on one entry
+  against 4 entries built on the card (candidates equal, ids >= 0.999;
+  on 500 queries K1 against its plain version, and the exact f32 gather
+  engine's candidates and ranking within bf16's rounding bound): recall,
+  build and pass times,
+  QPS at 2,000 and 16,384 queries, peak device memory.
+
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
@@ -2806,6 +2832,418 @@ def phase_train_cli(tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-device: the corpus-sharded index, the table-sharded ensemble,
+# data-parallel training and BASELINE's config 5, on the one card through
+# meshes that name it more than once
+# ---------------------------------------------------------------------------
+
+SHARDS = 4                   # entries of the repeated-device meshes
+DP_ENTRIES = 2               # entries of train_dp's meshes
+CONFIG5_N = 10_000_000       # benchmarks/configs.py config_5, seed 0
+CONFIG5_QUERIES = 2_000
+CONFIG5_BIG_BATCH = 16_384   # fresh queries of the same cluster model
+CONFIG5_GATHER_QUERIES = 500
+CONFIG5_BITS = 14
+CONFIG5_STEPS = 400
+CONFIG5_SUBSET = 131_072
+
+
+# a bf16 row of a unit vector is off by at most 2**-9 of its norm, so a
+# unit query's score of it is off by at most 2**-9, and the bf16 serve can
+# rank a row above another only when their exact scores are within 2**-8
+BF16_SCORE_BOUND = 2.0 ** -8 + 1e-6
+
+
+def _bf16_regret(corpus, queries, ids, exact_ids) -> float:
+    """The largest amount by which a bf16 serve's r-th best exact cosine
+    (its ids re-scored in float64) falls below the exact engine's r-th,
+    over every query and rank r."""
+    def ranked(sel):
+        rows = corpus[np.clip(sel, 0, None)].astype(np.float64)
+        sims = np.einsum("qkd,qd->qk", rows, queries.astype(np.float64))
+        return -np.sort(-np.where(sel >= 0, sims, -np.inf), axis=1)
+
+    want, got = ranked(exact_ids), ranked(ids)
+    both_empty = np.isneginf(want) & np.isneginf(got)
+    return float(np.max(np.where(both_empty, 0.0, want - got)))
+
+
+def _card_mesh(n: int, axis: str):
+    """A mesh of ``n`` entries that all name the one card."""
+    from nlsh_tpu_torch.parallel import Mesh
+
+    return Mesh([f"{DEVICE}:0"] * n, axis)
+
+
+def _slot_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a == b).mean())
+
+
+def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
+                  tmp: str) -> dict:
+    """``ShardedIndexer`` over ``make_mesh(1, "shard")`` and over 4 entries
+    of the card, on the grouped (K1), windowed (K3), fixed-cap (K5) and
+    gather engines, 16 flip probes, k = 10, against an ``Indexer`` built
+    with ``probe_budget=None``: the sharded layouts take the largest
+    bucket of any shard as their cap (543 -> 1,024 on one shard), not
+    the serve's 512.  Every engine and mesh: recall and candidates in
+    the single table's windows, candidates equal to that ``Indexer``'s
+    query by query, ids on >= 0.999 of its slots.  Per-row int8 on the
+    grouped engine: recall in the int8 window.  ``save``/``load`` at
+    D = 4, and a load on a one-entry mesh refused.  ``build_s``, the
+    median of 3 passes and QPS per mesh and engine.  Returns the
+    launches of the sharded serves."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    ref = Indexer(load_hashing(), corpus, device=DEVICE, metric="cosine")
+    r_ids, r_cand = ref.query(queries, **kw)
+    ref_cap = ref.layout.cap
+    del ref
+    torch.cuda.empty_cache()
+
+    def held(ids, n_cand, what):
+        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        mean_cand = float(n_cand.mean())
+        check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
+              f"{what}: recall@10 {recall} outside {RECALL_RANGE}")
+        check(N_CAND_RANGE[0] <= mean_cand <= N_CAND_RANGE[1],
+              f"{what}: mean n_candidates {mean_cand} outside {N_CAND_RANGE}")
+        check(bool(np.array_equal(n_cand, r_cand)),
+              f"{what}: candidates differ from the Indexer's")
+        agree = id_agreement(ids, r_ids)
+        check(agree >= 0.999, f"{what}: ids vs the Indexer {agree} < 0.999")
+        return {"recall_at_10": recall, "mean_n_candidates": mean_cand,
+                "id_agreement": agree,
+                "slot_agreement": _slot_agreement(ids, r_ids)}
+
+    reset_launches()
+    out = {}
+    for d, mesh in ((1, make_mesh(1, "shard")),
+                    (SHARDS, _card_mesh(SHARDS, "shard"))):
+        t0 = time.perf_counter()
+        idx = ShardedIndexer(load_hashing(), corpus, mesh, metric="cosine")
+        cap = idx._build_layouts()[0].cap
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t0, "cap": cap,
+               "n_local": idx.n_local, "engines": {}}
+        for engine in ("grouped", "windowed", "fixed", "gather"):
+            idx.engine = engine
+            ids, n_cand = idx.query(queries, **kw)
+            res = held(ids, n_cand, f"sharded D={d} {engine}")
+            timed = _timed_passes(lambda: idx.query(queries, **kw), 3)
+            row["engines"][engine] = {
+                **res, "median_s": timed["median_s"],
+                "qps": queries.shape[0] / timed["median_s"]}
+        if d == SHARDS:
+            idx.engine = "grouped"
+            path = os.path.join(tmp, "sharded.npz")
+            g_ids, _ = idx.query(queries, **kw)
+            idx.save(path)
+            t0 = time.perf_counter()
+            back = ShardedIndexer.load(path, load_hashing(), corpus, mesh)
+            row["load_s"] = time.perf_counter() - t0
+            b_ids, b_cand = back.query(queries, **kw)
+            check(bool(np.array_equal(b_ids, g_ids)),
+                  "sharded load: ids differ from the saved index's")
+            check(bool(np.array_equal(b_cand, r_cand)),
+                  "sharded load: candidates differ")
+            refused = False
+            try:
+                ShardedIndexer.load(path, load_hashing(), corpus,
+                                    make_mesh(1, "shard"))
+            except ValueError:
+                refused = True
+            check(refused, "a 4-way index loaded on a one-entry mesh")
+            row["file_bytes"] = os.path.getsize(path)
+            del back
+        del idx
+        i8 = ShardedIndexer(load_hashing(), corpus, mesh, metric="cosine",
+                            engine="grouped", serving_dtype=torch.int8)
+        ids, n_cand = i8.query(queries, **kw)
+        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1],
+              f"sharded D={d} int8 recall@10 {recall} outside "
+              f"{INT8_RECALL_RANGE}")
+        check(bool(np.array_equal(n_cand, r_cand)),
+              f"sharded D={d} int8: candidates differ")
+        row["int8_grouped_recall_at_10"] = recall
+        del i8
+        torch.cuda.empty_cache()
+        out[str(d)] = row
+    launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
+                             "bucket_scores_auto")
+    emit("sharded", n_queries=int(queries.shape[0]), k=K,
+         hash_times=HASH_TIMES, indexer_cap=ref_cap, meshes=out,
+         launches=launches)
+    return launches
+
+
+def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
+                           gt: np.ndarray, mt_ids, mt_cand) -> dict:
+    """The committed 8-table ensemble over 4 entries of the card (2 tables
+    each), 4 flip probes per table, on the windowed (K3), grouped (K1)
+    and fixed-cap (K5) engines: ids >= 0.999 of the unsharded ensemble's,
+    recall and summed candidates in their windows (and equal to the
+    unsharded serve's); on the gather engine (1,000 queries)
+    ``n_candidates``, the psum of each entry's distinct count, is at
+    least the exact distinct count.  Returns the launches."""
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    reset_launches()
+    t0 = time.perf_counter()
+    midx = MultiTableIndexer(load_ensemble(), corpus, metric="cosine",
+                             mesh=_card_mesh(SHARDS, "table"))
+    midx._entry_layouts()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per = {}
+    for engine in ("windowed", "grouped", "fixed"):
+        midx.engine = engine
+        ids, n_cand = midx.query(queries, **kw)
+        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        mean_cand = float(n_cand.mean())
+        agree = id_agreement(ids, mt_ids)
+        check(agree >= 0.999,
+              f"table-sharded {engine} vs unsharded {agree} < 0.999")
+        check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
+              f"table-sharded {engine} recall@10 {recall} outside "
+              f"{MT_RECALL_RANGE}")
+        check(MT_N_CAND_RANGE[0] <= mean_cand <= MT_N_CAND_RANGE[1],
+              f"table-sharded {engine} n_candidates {mean_cand} outside "
+              f"{MT_N_CAND_RANGE}")
+        check(bool(np.array_equal(n_cand, mt_cand)),
+              f"table-sharded {engine}: summed candidates differ")
+        timed = _timed_passes(lambda: midx.query(queries, **kw), 3)
+        per[engine] = {"recall_at_10": recall, "mean_n_candidates": mean_cand,
+                       "vs_unsharded": agree, "median_s": timed["median_s"],
+                       "qps": queries.shape[0] / timed["median_s"]}
+    launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
+                             "bucket_scores_auto")
+    midx.engine = "gather"
+    head = queries[:MT_GATHER_QUERIES]
+    x_ids, x_cand = midx.query(head, **kw)
+    exact = midx.exact_query_size(head, hash_times=MT_HASH_TIMES,
+                                  probe_mode="flip")
+    check(bool((x_cand >= exact).all()),
+          "table-sharded gather: n_candidates below the exact distinct count")
+    gather_agree = id_agreement(x_ids, mt_ids[:MT_GATHER_QUERIES])
+    check(gather_agree >= 0.98,
+          f"table-sharded gather vs unsharded {gather_agree} < 0.98")
+    emit("ensemble_sharded", n_queries=int(queries.shape[0]), k=K,
+         hash_times=MT_HASH_TIMES, entries=SHARDS,
+         tables_per_entry=midx.n_tables // SHARDS, build_s=build_s,
+         engines=per, gather_queries=MT_GATHER_QUERIES,
+         gather_mean_n_candidates=float(x_cand.mean()),
+         gather_mean_exact=float(exact.mean()),
+         gather_vs_unsharded=gather_agree, launches=launches)
+    del midx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_dp(data) -> None:
+    """The bench's training step over a 2-entry mesh of the card against
+    the same data-parallel runner over 2 CPU entries, from the committed
+    params on the same injected arrays: step 1's ``pmean``-ed loss and
+    every gradient within ``TRAIN_STEP_RTOL``, the first 20 losses within
+    ``TRAIN_LOSSES_RTOL``."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.parallel import Mesh
+    from nlsh_tpu_torch.parallel.dp import build_dp_segment_runner
+    from nlsh_tpu_torch.train import TripletTrainer
+    from nlsh_tpu_torch.train.base import device_arrays
+
+    bs = bench.TRAIN_CFG["batch_size"]
+    n = data.training.shape[0]
+    rng = np.random.default_rng(1)
+    arrays = {"anchor": rng.integers(0, n, TRAIN_STEP_CHECK * bs),
+              "col": rng.integers(0, 20, TRAIN_STEP_CHECK * bs),
+              "neg": rng.integers(0, n, TRAIN_STEP_CHECK * bs)}
+    trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
+    out = {}
+    for device, mesh in (("cpu", Mesh(["cpu"] * DP_ENTRIES, "data")),
+                         (DEVICE, _card_mesh(DP_ENTRIES, "data"))):
+        params = {"hashing": load_hashing().to(mesh.devices[0]).train(),
+                  "extra": {}}
+        corpus = torch.as_tensor(data.training, device=mesh.devices[0])
+        knn = torch.as_tensor(data.training_self_knn.astype(np.int64),
+                              device=mesh.devices[0])
+        dev_arrays = device_arrays(arrays, mesh.devices[0])
+        run = build_dp_segment_runner(trainer, bs, mesh)
+        state = trainer.make_state(params, bench.TRAIN_CFG["learning_rate"])
+        loss, grads = run.loss_and_grads(state, corpus, knn, dev_arrays, 0)
+        t0 = time.perf_counter()
+        _, losses = run(state, corpus, knn, dev_arrays, 0, TRAIN_STEP_CHECK)
+        losses = losses.cpu()
+        out[device] = (loss, grads, losses, time.perf_counter() - t0)
+    (l0, g0, s0, cpu_s), (l1, g1, s1, card_s) = out["cpu"], out[DEVICE]
+    loss_err = _rel_err(l1, l0)
+    grad_err = max(_rel_err(a, b) for a, b in zip(g1, g0))
+    losses_err = float(((s1 - s0).abs() / s0.abs()).max())
+    check(loss_err <= TRAIN_STEP_RTOL and grad_err <= TRAIN_STEP_RTOL,
+          f"data-parallel step 1 card vs CPU: loss {loss_err}, gradients "
+          f"{grad_err}")
+    check(losses_err <= TRAIN_LOSSES_RTOL,
+          f"data-parallel {TRAIN_STEP_CHECK} losses card vs CPU: "
+          f"{losses_err}")
+    emit("train_dp", entries=DP_ENTRIES, batch_size=bs,
+         steps=TRAIN_STEP_CHECK, step1_loss=float(l1), step1_loss_rel_err=loss_err,
+         step1_grad_rel_err=grad_err, losses_rel_err=losses_err,
+         losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s)
+
+
+class _Config5Data:
+    """config_5's training set: the subset, its self-kNN, 256 queries."""
+
+    def __init__(self, subset, sub_knn, queries, gt):
+        self.training, self.training_self_knn = subset, sub_knn
+        self.testing, self.ground_truth = queries[:256], gt[:256]
+        self.metric, self.prepared, self.dim = "cosine", True, subset.shape[1]
+
+    def load(self):
+        return self
+
+
+def phase_config5(tmp: str) -> dict:
+    """BASELINE's config 5 at full width: ``benchmarks/configs.py``'s
+    deep-image-96 workload (10,000,000 x 96, 2,000 queries, seed 0; its
+    float64 noise is a ~7.7 GB transient on the host), exact ground truth
+    of the queries on the card, a 14-bit SIREN 96->256->256 fitted as
+    ``config_5`` fits it (131,072-row subset, self-kNN k = 20, triplet
+    margin 0.5, positive_k 20, balance 1.5, batch 2048, lr 1e-3, 400
+    steps) through ``fit(mesh=make_mesh(axis="data"))``, then the bf16
+    grouped serve at 16 flip probes through ``make_mesh(axis="shard")``
+    with ``layout_mode="host"`` (the lazy corpus: the raw rows never on
+    the card) and through 4 entries of the card, built on the card:
+    candidates equal between the two, ids >= 0.999; on 500 queries K1
+    against its plain version (>= 0.999) and the exact f32 gather engine
+    (candidates equal; the r-th best exact cosine never more than
+    ``BF16_SCORE_BOUND`` below the gather's: bf16 rows reorder near-ties,
+    0.962 of the ids agree).  No recall window: the port's training streams
+    are its own.  Recall, candidates, ``build_s``, QPS at 2,000 and
+    16,384 queries, peak device memory.  Returns the serves' launches."""
+    import torch
+
+    from benchmarks.configs import deepimage96_points, deepimage96_workload
+    from nlsh_tpu_torch.models import get_encoder, get_hashing
+    from nlsh_tpu_torch.ops.knn import knn, self_knn
+    from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
+    from nlsh_tpu_torch.train import TripletTrainer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    centers, corpus, queries = deepimage96_workload(
+        rng, CONFIG5_N, n_test=CONFIG5_QUERIES, dim=96)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, gt = knn(queries, corpus, k=K, metric="cosine", device=DEVICE,
+                query_tile=1024, corpus_chunk=131_072)
+    gt = gt.cpu().numpy()
+    torch.cuda.empty_cache()
+    gt_s = time.perf_counter() - t0
+
+    sub = rng.choice(CONFIG5_N, CONFIG5_SUBSET, replace=False)
+    subset = corpus[sub]
+    sub_knn = self_knn(subset, k=20, metric="cosine",
+                       device=DEVICE).cpu().numpy()
+    head = get_hashing("MultivariateBernoulli",
+                       get_encoder("siren", 96, [256, 256]), CONFIG5_BITS)
+    trainer = TripletTrainer(head, _Config5Data(subset, sub_knn, queries, gt),
+                             os.path.join(tmp, "config5"), margin=0.5,
+                             positive_k=20, balance_lambda=1.5)
+    t0 = time.perf_counter()
+    state = trainer.fit(K=K, batch_size=2048, learning_rate=1e-3, epochs=100,
+                        test_every_updates=10 ** 9, max_steps=CONFIG5_STEPS,
+                        hash_times=10, mesh=make_mesh(axis="data"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(state.step == CONFIG5_STEPS, f"config 5 fit: {state.step} steps")
+    hashing = state.params["hashing"].eval()
+
+    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    big = deepimage96_points(centers, rng, CONFIG5_BIG_BATCH, dim=96)
+    reset_launches()
+    serves = {}
+    answers = {}
+    for name, mesh, mode in (("lazy_1", make_mesh(axis="shard"), "host"),
+                             (f"device_{SHARDS}",
+                              _card_mesh(SHARDS, "shard"), "device")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = ShardedIndexer(hashing, corpus, mesh, metric="cosine",
+                             engine="grouped", serving_dtype=torch.bfloat16,
+                             layout_mode=mode)
+        lay = idx._build_layouts()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if mode == "host":
+            check(idx._corpus_local is None,
+                  "the lazy corpus went to the card")
+        ids, n_cand = idx.query(queries, **kw)
+        answers[name] = (ids, n_cand)
+        timed = _timed_passes(lambda: idx.query(queries, **kw), 3)
+        big_timed = _timed_passes(lambda: idx.query(big, **kw), 3)
+        serves[name] = {
+            "build_s": build_s, "cap": lay[0].cap,
+            "layout_gib": sum(x.data.numel() * x.data.element_size()
+                              for x in lay) / 2 ** 30,
+            "recall_at_10": float(calculate_recall(gt[:, :K], ids, np.mean)),
+            "mean_n_candidates": float(n_cand.mean()),
+            "median_s": timed["median_s"],
+            "qps": queries.shape[0] / timed["median_s"],
+            "big_batch_median_s": big_timed["median_s"],
+            "big_batch_qps": CONFIG5_BIG_BATCH / big_timed["median_s"]}
+        if mode == "device":
+            n = CONFIG5_GATHER_QUERIES
+            p_ids, p_cand = idx.query(queries[:n], plain=True, **kw)
+            vs_plain = id_agreement(ids[:n], p_ids)
+            check(bool(np.array_equal(p_cand, n_cand[:n])) and
+                  vs_plain >= 0.999,
+                  f"config 5: bf16 K1 vs its plain version {vs_plain}")
+            idx.engine = "gather"
+            x_ids, x_cand = idx.query(queries[:n], **kw)
+            check(bool(np.array_equal(x_cand, n_cand[:n])),
+                  "config 5: gather candidates differ from grouped")
+            regret = _bf16_regret(corpus, queries[:n], ids[:n], x_ids)
+            check(regret <= BF16_SCORE_BOUND,
+                  f"config 5: bf16 grouped ranks {regret} below the exact "
+                  f"f32 gather, over the bf16 bound {BF16_SCORE_BOUND}")
+            serves[name].update(
+                k1_vs_plain=vs_plain,
+                gather_vs_grouped=id_agreement(ids[:n], x_ids),
+                gather_slot_agreement=_slot_agreement(ids[:n], x_ids),
+                max_rank_regret=regret)
+        del idx, lay
+        torch.cuda.empty_cache()
+    launches = read_launches("grouped_scores_topk")
+    (a_ids, a_cand), (b_ids, b_cand) = answers.values()
+    check(bool(np.array_equal(a_cand, b_cand)),
+          "config 5: candidates differ between the lazy and 4-entry serves")
+    agree = id_agreement(a_ids, b_ids)
+    check(agree >= 0.999, f"config 5: lazy vs 4-entry ids {agree} < 0.999")
+    emit("config5", n_corpus=CONFIG5_N, dim=96, n_queries=CONFIG5_QUERIES,
+         bits=CONFIG5_BITS, hash_times=HASH_TIMES, k=K, data_s=data_s,
+         gt_s=gt_s, train_steps=state.step, train_s=train_s,
+         serves=serves, lazy_vs_device=agree, big_batch=CONFIG5_BIG_BATCH,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2868,6 +3306,8 @@ def main() -> int:
         new_callers["ensemble_fixed"], new_callers["ensemble_int8"] = \
             phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand)
         del midx
+        new_callers["ensemble_sharded"] = phase_ensemble_sharded(
+            corpus, queries, gt, mt_ids, mt_cand)
         serve_s = float(np.median(_timed_passes(lambda: restored.query(
             queries, k=K, hash_times=HASH_TIMES, probe_mode="flip"),
             3)["pass_s"]))
@@ -2895,6 +3335,13 @@ def main() -> int:
         new_callers["train_ensemble"] = phase_train_ensemble(
             data, corpus, queries, gt, tmp)
         new_callers["train_cli"] = phase_train_cli(tmp)
+
+        # multi-device on the one card: data parallelism, the corpus-sharded
+        # index, and config 5 at full width
+        phase_train_dp(data)
+        new_callers["sharded"] = phase_sharded(corpus, queries, gt, tmp)
+        del corpus
+        new_callers["config5"] = phase_config5(tmp)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")

@@ -12,7 +12,8 @@ the built tables from ``--index_path`` when that file exists and saving
 them there otherwise, then serves a query batch through the pipelined
 ``query_async`` loop and reports recall/query_size/QPS as one JSON line;
 ``--loop`` answers JSONL requests from stdin instead.  Everything runs on
-``--device`` (default ``cuda``).  Engines go by the port's names
+``--device`` (default ``cuda``); ``--shards N`` splits the corpus of a
+single table over N devices of that kind.  Engines go by the port's names
 (``grouped``, ``windowed``, ``fixed``, ``gather``, ``auto``); the JAX
 package's names are accepted as aliases.
 """
@@ -66,7 +67,8 @@ def nlsh_serve_argparse() -> argparse.ArgumentParser:
                    help="int8 quantisation granularity: one scale per row "
                         "or one global scale")
     p.add_argument("--shards", type=int, default=0,
-                   help="shard the corpus over N devices (not ported yet)")
+                   help="shard the corpus over N devices of --device's "
+                        "kind (a single table)")
     p.add_argument("--pipeline", type=int, default=4,
                    help="in-flight query batches")
     p.add_argument("--batch", type=int, default=0,
@@ -94,8 +96,27 @@ def _load_queries(args, data):
 
 def _build_indexer(args, hashing, corpus, metric: str = "cosine"):
     """The indexer of ``hashing`` (one module, or a list: an ensemble)
-    over ``corpus`` on ``args.device``: restored from ``args.index_path``
-    when that file exists, else built and saved there."""
+    over ``corpus`` on ``args.device`` (with ``--shards N``, a
+    :class:`~nlsh_tpu_torch.parallel.ShardedIndexer` over N devices of
+    its kind): restored from ``args.index_path`` when that file exists,
+    else built and saved there."""
+    dtype = DTYPE_NAMES[_DTYPES[args.serving_dtype]]
+    if args.shards:
+        from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
+
+        if isinstance(hashing, list):
+            raise ValueError("--shards shards the corpus of one table; the "
+                             "artifact is an ensemble")
+        mesh = make_mesh(args.shards, axis="shard",
+                         platform=torch.device(args.device).type)
+        if args.index_path and os.path.exists(args.index_path):
+            return ShardedIndexer.load(args.index_path, hashing, corpus, mesh)
+        idx = ShardedIndexer(hashing, corpus, mesh, metric=metric,
+                             engine=args.engine, serving_dtype=dtype,
+                             int8_scale=args.int8_scale)
+        if args.index_path:
+            idx.save(args.index_path)
+        return idx
     if isinstance(hashing, list):
         from nlsh_tpu_torch.parallel import MultiTableIndexer as cls
     else:
@@ -103,8 +124,7 @@ def _build_indexer(args, hashing, corpus, metric: str = "cosine"):
     if args.index_path and os.path.exists(args.index_path):
         return cls.load(args.index_path, hashing, corpus, device=args.device)
     idx = cls(hashing, corpus, device=args.device, metric=metric,
-              engine=args.engine,
-              serving_dtype=DTYPE_NAMES[_DTYPES[args.serving_dtype]],
+              engine=args.engine, serving_dtype=dtype,
               int8_scale=args.int8_scale)
     if args.index_path:
         idx.save(args.index_path)
@@ -228,10 +248,6 @@ def serve_loop(args, idx, extra, dim, stdin=None, stdout=None) -> dict:
 
 def main(argv: list[str] | None = None) -> dict:
     args = nlsh_serve_argparse().parse_args(argv)
-    if args.shards:
-        raise NotImplementedError(
-            "--shards: the corpus-sharded indexer is not ported yet (the "
-            "multi-GPU slice of the port); run without --shards")
     hashing = load_model(args.model_path, device=args.device)
 
     data = get_data_by_id(args.data_id, device=args.device).load()

@@ -6,9 +6,12 @@
 The JAX package's flags, defaults and hashing-type / distance rules, plus
 ``--device`` (default ``cuda``; ``cpu`` runs on the CPU).
 ``--learner_type hnsw`` builds the HNSW baseline on the host (the
-dataset's ground truth is computed on ``--device``).  Not ported yet:
-``--n_devices`` above 1 (data-parallel training, the multi-GPU slice),
-which raises.
+dataset's ground truth is computed on ``--device``).  ``--n_devices N``
+(N > 1) trains data-parallel over N devices of ``--device``'s kind;
+processes named by ``NLSH_COORDINATOR`` / ``NLSH_NUM_PROCESSES`` /
+``NLSH_PROCESS_ID`` (or ``NLSH_AUTO_DISTRIBUTED=1``) join one
+``torch.distributed`` group first
+(:func:`nlsh_tpu_torch.parallel.multihost.initialize_from_env`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import os
 import sys
 import tempfile
 from datetime import datetime
+
+import torch
 
 from nlsh_tpu_torch.data import get_data_by_id
 from nlsh_tpu_torch.models import get_encoder, get_hashing
@@ -84,8 +89,8 @@ def nlsh_argparse() -> argparse.ArgumentParser:
                    choices=("sample", "flip"),
                    help="multi-probe strategy of the eval queries")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel training over N devices (not ported "
-                        "yet: above 1 raises)")
+                   help="data-parallel training over N devices of "
+                        "--device's kind")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--resume_from", type=str, default=None)
@@ -209,10 +214,12 @@ def get_learner_from_args(args, hashing, data, logger, model_save_dir):
 
 def main(argv: list[str] | None = None):
     args = nlsh_argparse().parse_args(argv)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1: data-parallel training is not ported yet (the "
-            "multi-GPU slice, ROADMAP.md Queue 1 item 4)")
+    # joins the processes named by NLSH_COORDINATOR / NLSH_NUM_PROCESSES /
+    # NLSH_PROCESS_ID (or NLSH_AUTO_DISTRIBUTED) before any device use; a
+    # no-op without them
+    from nlsh_tpu_torch.parallel.multihost import initialize_from_env
+
+    initialize_from_env(platform=torch.device(args.device).type)
     device = resolve_device(args.device)
     model_save_dir = args.model_save_dir or get_env(
         "NLSH_MODEL_SAVE_DIR", os.path.join(tempfile.gettempdir(),
@@ -234,6 +241,14 @@ def main(argv: list[str] | None = None):
         logger.meta(params={"n_tables": args.n_tables})
         learner = MultiTableTrainer(learner, args.n_tables)
 
+    mesh = None
+    if args.n_devices is not None and args.n_devices > 1:
+        # data-parallel fit: each step's batch split over the devices
+        from nlsh_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.n_devices, axis="data", platform=device.type)
+        logger.meta(params={"n_devices": args.n_devices})
+
     print("Start training")
     return learner.fit(
         K=args.k, batch_size=args.batch_size,
@@ -241,8 +256,9 @@ def main(argv: list[str] | None = None):
         test_every_updates=args.test_every_updates, epochs=args.epochs,
         hash_times=args.hash_times, probe_mode=args.probe_mode,
         seed=args.seed, max_steps=args.max_steps,
-        resume_from=args.resume_from, lr_schedule=args.lr_schedule,
-        warmup_steps=args.warmup_steps, device=device)
+        resume_from=args.resume_from, mesh=mesh,
+        lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+        device=device)
 
 
 if __name__ == "__main__":

@@ -887,6 +887,17 @@ def _check_rows(data, norms, scale_rows):
             _check(name, t, (torch.float32,), (data.shape[0],), data.device)
 
 
+def _launch_device(t: torch.Tensor) -> torch.device:
+    """The device a launch on ``t`` runs on; anything but a CUDA device
+    raises.  The launch is made with it current (``torch.cuda.device``):
+    the sources size their grid from the runtime's current device, and
+    :func:`_stream` gives its stream."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"the scoring kernels run on CUDA tensors, got {t.device}")
+    return t.device
+
+
 def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
@@ -902,21 +913,24 @@ def grouped_scores_topk(data, grp_qvecs, grp_block, grp_cnt, kk: int,
     if data.device.type == "cpu":
         return grouped_scores_topk_plain(data, grp_qvecs, grp_block, grp_cnt,
                                          kk, block_rows, norms, scale_rows)
-    br = _br(block_rows)
-    kk = min(max(int(kk), 1), ROW_TOPK)
-    g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
-                                                br, topk=True)
-    dev = data.device
-    _check("grp_cnt", grp_cnt, (torch.int32,), (g_total, G), dev)
-    _check_rows(data, norms, scale_rows)
-    scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
-    lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
-    from nlsh_tpu_torch.ops.cuda.build import load_library
+    dev = _launch_device(data)
+    with torch.cuda.device(dev):
+        br = _br(block_rows)
+        kk = min(max(int(kk), 1), ROW_TOPK)
+        g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs,
+                                                    grp_block, br, topk=True)
+        _check("grp_cnt", grp_cnt, (torch.int32,), (g_total, G), dev)
+        _check_rows(data, norms, scale_rows)
+        scores = torch.empty((g_total, G, kk), dtype=torch.float32,
+                             device=dev)
+        lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
+        from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    err = load_library().nlsh_grouped_scores_topk(
-        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
-        _ptr(grp_cnt), _ptr(norms), _ptr(scale_rows), _ptr(scores),
-        _ptr(lanes), g_total, G, d_pad, br, n_blocks, kk, _stream(dev))
+        err = load_library().nlsh_grouped_scores_topk(
+            _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data),
+            _ptr(grp_block), _ptr(grp_cnt), _ptr(norms), _ptr(scale_rows),
+            _ptr(scores), _ptr(lanes), g_total, G, d_pad, br, n_blocks, kk,
+            _stream(dev))
     _raise_on(err, "grouped_scores_topk")
     KERNEL_LAUNCHES["grouped_scores_topk"] += 1
     return scores, lanes
@@ -961,23 +975,25 @@ def windowed_scores_topk(data, grp_qvecs, grp_window, grp_lo, grp_hi,
         return windowed_scores_topk_plain(data, grp_qvecs, grp_window, grp_lo,
                                           grp_hi, kk, block_rows, norms,
                                           scale_rows)
-    br = _br(block_rows)
-    kk = min(max(int(kk), 1), ROW_TOPK)
-    g_total, G, d_pad, n_windows = _check_launch(data, grp_qvecs, grp_window,
-                                                 br, topk=True)
-    dev = data.device
-    _check("grp_lo", grp_lo, (torch.int32,), (g_total, G), dev)
-    _check("grp_hi", grp_hi, (torch.int32,), (g_total, G), dev)
-    _check_rows(data, norms, scale_rows)
-    scores = torch.empty((g_total, G, kk), dtype=torch.float32, device=dev)
-    lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
-    from nlsh_tpu_torch.ops.cuda.build import load_library
+    dev = _launch_device(data)
+    with torch.cuda.device(dev):
+        br = _br(block_rows)
+        kk = min(max(int(kk), 1), ROW_TOPK)
+        g_total, G, d_pad, n_windows = _check_launch(data, grp_qvecs,
+                                                     grp_window, br, topk=True)
+        _check("grp_lo", grp_lo, (torch.int32,), (g_total, G), dev)
+        _check("grp_hi", grp_hi, (torch.int32,), (g_total, G), dev)
+        _check_rows(data, norms, scale_rows)
+        scores = torch.empty((g_total, G, kk), dtype=torch.float32,
+                             device=dev)
+        lanes = torch.empty((g_total, G, kk), dtype=torch.int32, device=dev)
+        from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    err = load_library().nlsh_windowed_scores_topk(
-        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data),
-        _ptr(grp_window), _ptr(grp_lo), _ptr(grp_hi), _ptr(norms),
-        _ptr(scale_rows), _ptr(scores), _ptr(lanes), g_total, G, d_pad, br,
-        n_windows, kk, _stream(dev))
+        err = load_library().nlsh_windowed_scores_topk(
+            _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data),
+            _ptr(grp_window), _ptr(grp_lo), _ptr(grp_hi), _ptr(norms),
+            _ptr(scale_rows), _ptr(scores), _ptr(lanes), g_total, G, d_pad,
+            br, n_windows, kk, _stream(dev))
     _raise_on(err, "windowed_scores_topk")
     KERNEL_LAUNCHES["windowed_scores_topk"] += 1
     return scores, lanes
@@ -1005,16 +1021,18 @@ def _launch_panels(data, grp_qvecs, grp_block, br: int,
     validated operands: ``grp_qvecs`` ``(g_total, G, d_pad)``, or
     ``(G, d_pad)`` for one query panel read by every group (a query
     stride of 0 between groups)."""
-    g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs, grp_block,
-                                                br, topk=False)
-    q_stride = 0 if grp_qvecs.dim() == 2 else G * d_pad
-    out = torch.empty((g_total, G, br), dtype=torch.float32, device=data.device)
-    from nlsh_tpu_torch.ops.cuda.build import load_library
+    dev = _launch_device(data)
+    with torch.cuda.device(dev):
+        g_total, G, d_pad, n_blocks = _check_launch(data, grp_qvecs,
+                                                    grp_block, br, topk=False)
+        q_stride = 0 if grp_qvecs.dim() == 2 else G * d_pad
+        out = torch.empty((g_total, G, br), dtype=torch.float32, device=dev)
+        from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    err = load_library().nlsh_grouped_scores(
-        _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data), _ptr(grp_block),
-        _ptr(out), g_total, G, d_pad, br, n_blocks, q_stride,
-        _stream(data.device))
+        err = load_library().nlsh_grouped_scores(
+            _DTYPE_CODE[data.dtype], _ptr(grp_qvecs), _ptr(data),
+            _ptr(grp_block), _ptr(out), g_total, G, d_pad, br, n_blocks,
+            q_stride, _stream(dev))
     _raise_on(err, name)
     return out
 
@@ -1158,39 +1176,42 @@ def _launch_bucket(data, queries_ext, index, counts, cap: int, stride: int,
     """Launch the fixed-cap kernel (K5's, also K6's) on validated
     operands: the events grouped by :func:`_bucket_event_order` (torch
     ops on the card, no host read), then one launch."""
-    if data.device.type != "cuda":
-        raise ValueError(f"the scoring kernels run on CUDA tensors, got {data.device}")
-    dev = data.device
-    n_rows, d_pad = data.shape
-    nq, n_probes = index.shape
-    _check("data", data, tuple(_DTYPE_CODE), (n_rows, d_pad), dev)
-    _check("queries_ext", queries_ext, (torch.float32,), (nq, d_pad), dev)
-    _check("index", index, (torch.int32,), (nq, n_probes), dev)
-    _check("counts", counts, (torch.int32,), (nq, n_probes), dev)
-    why = bucket_shape_error(d_pad, cap, n_rows, data.dtype)
-    if why is not None:
-        raise ValueError(why)
-    return _launch_bucket_sorted(
-        data, queries_ext,
-        *_bucket_event_order(index, counts, cap, stride, n_rows), cap, name)
+    dev = _launch_device(data)
+    with torch.cuda.device(dev):
+        n_rows, d_pad = data.shape
+        nq, n_probes = index.shape
+        _check("data", data, tuple(_DTYPE_CODE), (n_rows, d_pad), dev)
+        _check("queries_ext", queries_ext, (torch.float32,), (nq, d_pad), dev)
+        _check("index", index, (torch.int32,), (nq, n_probes), dev)
+        _check("counts", counts, (torch.int32,), (nq, n_probes), dev)
+        why = bucket_shape_error(d_pad, cap, n_rows, data.dtype)
+        if why is not None:
+            raise ValueError(why)
+        return _launch_bucket_sorted(
+            data, queries_ext,
+            *_bucket_event_order(index, counts, cap, stride, n_rows), cap,
+            name)
 
 
 def _launch_bucket_sorted(data, queries_ext, order, first, counts, cap: int,
                           name: str) -> torch.Tensor:
     """The fixed-cap kernel's launch proper, on the events as
     :func:`_bucket_event_order` has sorted them (and
-    :func:`_launch_bucket` validated them)."""
+    :func:`_launch_bucket` validated them), with ``data``'s device
+    current."""
     nq = queries_ext.shape[0]
     n_probes = order.numel() // nq
     n_rows, d_pad = data.shape
-    out = torch.empty((nq, n_probes, cap), dtype=torch.float32,
-                      device=data.device)
-    from nlsh_tpu_torch.ops.cuda.build import load_library
+    dev = _launch_device(data)
+    with torch.cuda.device(dev):
+        out = torch.empty((nq, n_probes, cap), dtype=torch.float32,
+                          device=dev)
+        from nlsh_tpu_torch.ops.cuda.build import load_library
 
-    err = load_library().nlsh_bucket_scores(
-        _DTYPE_CODE[data.dtype], _ptr(queries_ext), _ptr(data), _ptr(order),
-        _ptr(first), _ptr(counts), _ptr(out), nq * n_probes, n_probes, cap,
-        d_pad, n_rows, _stream(data.device))
+        err = load_library().nlsh_bucket_scores(
+            _DTYPE_CODE[data.dtype], _ptr(queries_ext), _ptr(data),
+            _ptr(order), _ptr(first), _ptr(counts), _ptr(out),
+            nq * n_probes, n_probes, cap, d_pad, n_rows, _stream(dev))
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
     return out

@@ -1,6 +1,6 @@
-"""Multi-table (L hashings) ensembles on one device.
+"""Multi-table (L hashings) ensembles, on one device or table-sharded.
 
-Port of :mod:`nlsh_tpu.parallel.multitable` for a single device.  ``L``
+Port of :mod:`nlsh_tpu.parallel.multitable`.  ``L``
 hashings of one architecture (one ``nn.Module`` per table, e.g. from
 :func:`nlsh_tpu_torch.utils.checkpoint.stacked_params_from_jax`) each
 build a CSR bucket table over the same corpus.  A query probes every
@@ -31,13 +31,33 @@ fixed-cap engines and the exact DISTINCT count on the gather engine and
 from :meth:`exact_query_size`.  ``save``/``load`` keep the stacked CSR
 tables in the JAX package's npz format.
 
-Left for the multi-GPU slice: the mesh (table-sharded) path, the
-host-built stacked layout and the lazy host corpus.
+With a ``mesh`` (:class:`~nlsh_tpu_torch.parallel.mesh.Mesh`, ``L``
+divisible by its global entry count D) the tables are sharded: entry
+``d`` holds tables ``[d * lc, (d + 1) * lc)`` (``lc = L / D``) in a flat
+layout of its own on its device and answers its tables' candidates;
+the per-entry lists are gathered and merged with the same duplicate
+collapse.  The merged ids equal the unsharded ensemble's; ``n_candidates``
+is the psum of the per-entry counts, so on the gather engine it is an
+upper bound of the distinct count when one row is a candidate on
+several entries (exchanging whole candidate sets would cost more than
+the rerank it counts).  Every process holds every table's CSR arrays
+and modules (queries are hashed on the mesh's first device), so
+:meth:`MultiTableIndexer.exact_query_size`, ``calibrate`` and ``save``
+behave as without a mesh.
+
+``layout_mode="host"`` builds the stacked layouts in numpy (the JAX
+package's host-built stack, which it takes for corpora of 2M rows or
+more), and then keeps a numpy corpus off the device (the lazy corpus:
+tables are hashed a chunk at a time; the gather engine uploads it on
+use).  ``"auto"`` means ``"device"``: the JAX package's row-count
+threshold exists for its TPU's memory and remote compiler and is not
+ported.
 """
 
 from __future__ import annotations
 
 import copy
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +70,7 @@ from nlsh_tpu_torch.index.indexer import (
     dtype_name,
     engine_from_jax,
     hash_corpus,
+    hash_corpus_host,
 )
 from nlsh_tpu_torch.index.query import smallest_k
 from nlsh_tpu_torch.index.serving import (
@@ -60,6 +81,7 @@ from nlsh_tpu_torch.index.serving import (
 )
 from nlsh_tpu_torch.ops import distances as D
 from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+from nlsh_tpu_torch.parallel.mesh import Mesh, all_gather, psum
 from nlsh_tpu_torch.utils.fingerprint import (
     check_fingerprint,
     corpus_fingerprint,
@@ -83,9 +105,21 @@ def _mt_query_chunk(L: int, n_probes: int, budget: int, dim: int) -> int:
     return int(max(4, min(512, _GATHER_BUDGET_BYTES // per_query)))
 
 
-def _windowed_needed(layout: qk.ServingLayout, gp, gv) -> int:
+class _FlatGeometry(NamedTuple):
+    """What a windowed group count reads of a flat layout, without its
+    rows: the flat bucket starts and counts, cap, rows, block rows."""
+
+    starts: torch.Tensor
+    counts: torch.Tensor
+    cap: int
+    n_rows: int
+    br: int
+
+
+def _windowed_needed(layout, gp, gv) -> int:
     """The exact group count of a windowed serve of the flat probes
-    ``(gp, gv)`` on ``layout``: one device reduction, one int read."""
+    ``(gp, gv)`` on ``layout`` (a :class:`qk.ServingLayout` or a
+    :class:`_FlatGeometry`): one device reduction, one int read."""
     br = layout.br
     return int(qk.windowed_needed_groups(
         layout.starts, layout.counts, gp, gv, layout.cap,
@@ -116,13 +150,16 @@ def _union_rows(row_ids, starts, counts, pids, pvalid, budget: int,
 
 
 class MultiTableIndexer:
-    """L learned hash tables over one corpus, on ``device``.
+    """L learned hash tables over one corpus, on ``device`` or sharded
+    over ``mesh``.
 
     Args:
       hashings: one hashing module per table, all with the same number
-        of buckets; they are moved to ``device``.
+        of buckets; they are moved to the index's device.
       corpus: ``(n, d)`` float32 rows (numpy or tensor).
-      device: where the index lives and queries run.
+      device: where the index lives and queries run (without a mesh).
+      mesh: a 1-D mesh to shard the tables over (``L`` divisible by its
+        global entry count); queries run on its first device.
       metric: rerank metric in the original space.
       probe_budget: rows served per probed bucket; ``None`` uses the
         largest bucket of any table (exact).
@@ -136,16 +173,27 @@ class MultiTableIndexer:
         counts (L, NB))`` (the persistence path): the corpus is then not
         hashed.
       int8_scale: ``"per_row"`` or ``"global"``; int8 layouts only.
+      layout_mode: ``"device"`` (= ``"auto"``) or ``"host"``: stacked
+        layouts built in numpy, and a numpy corpus kept off the device.
     """
 
     ENGINES = ("auto", "windowed", "grouped", "fixed", "gather")
 
-    def __init__(self, hashings: list[nn.Module], corpus, *, device,
-                 metric: str = "cosine", probe_budget: int | None = None,
-                 engine: str = "auto", serving_dtype=torch.float32,
-                 block_rows: int | None = None, tables=None,
-                 int8_scale: str = "per_row"):
+    @torch.no_grad()
+    def __init__(self, hashings: list[nn.Module], corpus, *, device=None,
+                 mesh: Mesh | None = None, metric: str = "cosine",
+                 probe_budget: int | None = None, engine: str = "auto",
+                 serving_dtype=torch.float32, block_rows: int | None = None,
+                 tables=None, int8_scale: str = "per_row",
+                 layout_mode: str = "auto"):
         qk._check_scale_mode(int8_scale)
+        if layout_mode not in ("auto", "device", "host"):
+            raise ValueError(f"unknown layout_mode {layout_mode!r}")
+        if mesh is not None:
+            device = mesh.devices[0]
+        elif device is None:
+            raise ValueError("give the index a device or a mesh")
+        self.mesh = mesh
         self.device = torch.device(device)
         self.hashings = [h.to(self.device).eval() for h in hashings]
         n_buckets = {h.n_buckets for h in self.hashings}
@@ -153,8 +201,19 @@ class MultiTableIndexer:
             raise ValueError(f"the tables disagree on n_buckets: {n_buckets}")
         (self.n_buckets,) = n_buckets
         self.n_tables = len(self.hashings)
-        self.corpus = torch.as_tensor(corpus, dtype=torch.float32,
-                                      device=self.device)
+        if mesh is not None and self.n_tables % mesh.global_size():
+            raise ValueError(
+                f"n_tables {self.n_tables} not divisible by mesh size "
+                f"{mesh.global_size()}")
+        self.layout_mode = layout_mode
+        self.n_rows = int(corpus.shape[0])
+        self._corpus_host = np.asarray(corpus, np.float32) \
+            if isinstance(corpus, np.ndarray) else None
+        # the lazy corpus: host layouts never read it on the device
+        lazy = layout_mode == "host" and self._corpus_host is not None
+        self.corpus = None if lazy else torch.as_tensor(
+            corpus, dtype=torch.float32, device=self.device)
+        self._corpus_copies = {}
         self.metric = metric
         self.serving_dtype = serving_dtype
         self.block_rows = block_rows
@@ -165,9 +224,13 @@ class MultiTableIndexer:
         self.engine = engine
         if tables is None:
             # one table at a time: each hash + stable sort's transients only
-            built = [build_bucket_table(hash_corpus(h, self.corpus),
-                                        self.n_buckets)
-                     for h in self.hashings]
+            built = []
+            for h in self.hashings:
+                codes = hash_corpus(h, self.corpus) if not lazy else \
+                    torch.from_numpy(hash_corpus_host(
+                        h, self._corpus_host, device=self.device))
+                built.append(build_bucket_table(codes, self.n_buckets,
+                                                device=self.device))
             tables = tuple(torch.stack([getattr(t, name) for t in built])
                            for name in ("row_ids", "starts", "counts"))
         # (L, n), (L, NB), (L, NB)
@@ -199,6 +262,29 @@ class MultiTableIndexer:
             self._stacked = None
             self._g_cal = None
 
+    # -- placement ---------------------------------------------------------------
+
+    def _entries(self) -> list[tuple[int, int, torch.device]]:
+        """``(first table, last table + 1, device)`` of each of this
+        process's entries: all tables on ``device`` without a mesh."""
+        if self.mesh is None:
+            return [(0, self.n_tables, self.device)]
+        lc = self.n_tables // self.mesh.global_size()
+        return [(g * lc, (g + 1) * lc, dev) for g, dev in (
+            (self.mesh.global_index(i), dev)
+            for i, dev in enumerate(self.mesh.devices))]
+
+    def _corpus_on(self, dev) -> torch.Tensor:
+        """The corpus on ``dev`` (uploaded from the host on first use when
+        it is lazy; one copy per other device)."""
+        if self.corpus is None:
+            self.corpus = torch.from_numpy(self._corpus_host).to(self.device)
+        if dev == self.device:
+            return self.corpus
+        if dev not in self._corpus_copies:
+            self._corpus_copies[dev] = self.corpus.to(dev)
+        return self._corpus_copies[dev]
+
     # -- persistence ---------------------------------------------------------
 
     def save(self, path: str) -> None:
@@ -206,6 +292,7 @@ class MultiTableIndexer:
         the corpus or the models: the caller owns those) as the JAX
         package's npz archive, with its engine and dtype names; without
         it a restart of an L=8 ensemble hashes the corpus 8 times."""
+        src = self.corpus if self.corpus is not None else self._corpus_host
         np.savez_compressed(
             path,
             row_ids=self.row_ids.cpu().numpy(),
@@ -214,19 +301,18 @@ class MultiTableIndexer:
             meta=np.array([
                 self.metric, str(self.probe_budget),
                 ENGINE_TO_JAX[self._engine], dtype_name(self.serving_dtype),
-                str(self.block_rows), str(self.n_tables),
-                str(self.corpus.shape[0]),
-                corpus_fingerprint(self.corpus),
+                str(self.block_rows), str(self.n_tables), str(self.n_rows),
+                corpus_fingerprint(src),
                 self.int8_scale,
             ]),
         )
 
     @classmethod
     def load(cls, path: str, hashings: list[nn.Module], corpus, *,
-             device) -> "MultiTableIndexer":
+             device=None, mesh: Mesh | None = None) -> "MultiTableIndexer":
         """Rebuild from :meth:`save` output (of this package or of the JAX
         package) without re-hashing; refuses a different corpus or table
-        count."""
+        count, and a mesh the tables do not divide over."""
         with np.load(path, allow_pickle=False) as z:
             meta = [str(v) for v in z["meta"]]
             # archives from before the int8_scale knob were global-scale
@@ -246,29 +332,24 @@ class MultiTableIndexer:
             check_fingerprint(digest, corpus)
             tables = (z["row_ids"], z["starts"], z["counts"])
         return cls(
-            hashings, corpus, device=device, metric=metric,
+            hashings, corpus, device=device, mesh=mesh, metric=metric,
             probe_budget=int(probe_budget), engine=engine_from_jax(engine),
             serving_dtype=DTYPE_NAMES[sdtype],
             block_rows=None if block_rows == "None" else int(block_rows),
             tables=tables, int8_scale=int8_scale,
         )
 
-    # -- the flat stacked serving layout -------------------------------------
+    # -- the flat stacked serving layouts ------------------------------------
 
     def _stacked_signature(self) -> tuple:
         return (self.engine, self.serving_dtype, int(self.probe_budget),
-                self.block_rows, self.int8_scale)
+                self.block_rows, self.int8_scale, self.layout_mode)
 
-    def _serving_layout(self) -> qk.ServingLayout:
-        """The flat layout over ``L * NB`` buckets, built on first use and
-        rebuilt (dropping the calibration) when a knob it depends on
-        changed."""
-        sig = self._stacked_signature()
-        if self._stacked is not None:
-            if self._stacked_sig == sig:
-                return self._stacked
-            self._g_cal = None  # calibrated for the stale layout
-            self._stacked = None
+    def _geometry(self) -> tuple[int, int, int, int, int]:
+        """``(cap, align, n_aligned, total_blocks, br)`` of the flat
+        layouts, from every table's counts: each entry's flat layout
+        gives its tables the same ``n_aligned`` rows and the group bound
+        the blocks of all ``L`` tables, as the JAX package's does."""
         br = qk._br(self.block_rows)
         cap = qk.round_cap(self.probe_budget, br)
         # windowed: dense 8-row starts (ensemble buckets are far smaller
@@ -280,48 +361,75 @@ class MultiTableIndexer:
                                      for c in counts_np), br)
         total_blocks = int(sum((-(-np.minimum(c, cap) // br)).sum()
                                for c in counts_np))
-        self._stacked = self._flat_layout(cap, align, n_aligned,
-                                          total_blocks, br)
+        return cap, align, n_aligned, total_blocks, br
+
+    def _entry_layouts(self) -> list[qk.ServingLayout]:
+        """One flat layout per entry of this process (one in all without a
+        mesh), built on first use and rebuilt (dropping the calibration)
+        when a knob it depends on changed."""
+        sig = self._stacked_signature()
+        if self._stacked is not None:
+            if self._stacked_sig == sig:
+                return self._stacked
+            self._g_cal = None  # calibrated for the stale layout
+            self._stacked = None
+        geometry = self._geometry()
+        build = self._flat_layout_host if self.layout_mode == "host" \
+            else self._flat_layout
+        self._stacked = [build(t0, t1, dev, *geometry)
+                         for t0, t1, dev in self._entries()]
         self._stacked_sig = sig
         return self._stacked
 
-    def _flat_layout(self, cap: int, align: int, n_aligned: int,
-                     total_blocks: int, br: int) -> qk.ServingLayout:
-        """Each table's layout (:func:`qk.layout_arrays` at the common
-        ``n_aligned``) written into one flat array, table-major, its
-        bucket starts offset by ``table * n_aligned``.  Built one table
-        at a time into the preallocated flat arrays, so the peak is the
-        flat layout plus one table's transients.
+    def _serving_layout(self) -> qk.ServingLayout:
+        """The flat layout over all ``L * NB`` buckets (no mesh)."""
+        if self.mesh is not None:
+            raise ValueError("a table-sharded ensemble has one flat layout "
+                             "per entry (_entry_layouts)")
+        return self._entry_layouts()[0]
+
+    def _check_dtype(self):
+        if self.serving_dtype not in DTYPE_NAMES.values():
+            raise ValueError(f"unsupported layout dtype {self.serving_dtype}")
+
+    def _flat_layout(self, t0: int, t1: int, dev, cap: int, align: int,
+                     n_aligned: int, total_blocks: int,
+                     br: int) -> qk.ServingLayout:
+        """Tables ``[t0, t1)``'s layouts (:func:`qk.layout_arrays` at the
+        common ``n_aligned``) written into one flat array on ``dev``,
+        table-major, their bucket starts offset by ``(table - t0) *
+        n_aligned``.  Built one table at a time into the preallocated
+        flat arrays, so the peak is the flat layout plus one table's
+        transients.
 
         int8 scales are taken over the SHARED corpus (every table
         quantises the same rows): ``"per_row"`` is one scale per corpus
         row, identical across tables and scattered by each table's
         permutation; ``"global"`` one scalar."""
-        if self.serving_dtype not in DTYPE_NAMES.values():
-            raise ValueError(f"unsupported layout dtype {self.serving_dtype}")
+        self._check_dtype()
         is_int8 = self.serving_dtype == torch.int8
         per_row = is_int8 and self.int8_scale == "per_row"
-        scale = qk.ext_scales(self.corpus, self.metric, self.int8_scale) \
-            if is_int8 else None
-        L, n = self.n_tables, n_aligned
-        d_pad = qk._round_up(self.corpus.shape[1], qk.LANE)
+        corpus = self._corpus_on(dev)
+        scale = qk.ext_scales(self.corpus, self.metric, self.int8_scale).to(
+            dev) if is_int8 else None
+        L, n = t1 - t0, n_aligned
+        d_pad = qk._round_up(corpus.shape[1], qk.LANE)
         data = torch.empty((L * n, d_pad), dtype=self.serving_dtype,
-                           device=self.device)
-        row_map = torch.empty(L * n, dtype=torch.int32, device=self.device)
+                           device=dev)
+        row_map = torch.empty(L * n, dtype=torch.int32, device=dev)
         starts = torch.empty((L, self.n_buckets), dtype=torch.int32,
-                             device=self.device)
+                             device=dev)
         norms = scale_rows = None
         if self.metric != "cosine":
-            norms = torch.empty(L * n, dtype=torch.float32,
-                                device=self.device)
+            norms = torch.empty(L * n, dtype=torch.float32, device=dev)
         if per_row:
-            scale_rows = torch.empty(L * n, dtype=torch.float32,
-                                     device=self.device)
+            scale_rows = torch.empty(L * n, dtype=torch.float32, device=dev)
         for t in range(L):
             d, rm, st, nr, sr = qk.layout_arrays(
-                self.row_ids[t], self.starts[t], self.counts[t], self.corpus,
-                cap=cap, n_aligned=n, metric=self.metric,
-                dtype=self.serving_dtype, align=align, scale=scale)
+                self.row_ids[t0 + t].to(dev), self.starts[t0 + t].to(dev),
+                self.counts[t0 + t].to(dev), corpus, cap=cap, n_aligned=n,
+                metric=self.metric, dtype=self.serving_dtype, align=align,
+                scale=scale)
             data[t * n:(t + 1) * n] = d
             row_map[t * n:(t + 1) * n] = rm
             starts[t] = st + t * n
@@ -331,10 +439,63 @@ class MultiTableIndexer:
                 scale_rows[t * n:(t + 1) * n] = sr
         return qk.ServingLayout(
             data=data, row_map=row_map, starts=starts.reshape(-1),
-            counts=self.counts.reshape(-1), cap=cap, d_pad=d_pad,
-            align=align, metric=self.metric, total_blocks=total_blocks,
-            norms=norms, block_rows=br,
+            counts=self.counts[t0:t1].reshape(-1).to(dev), cap=cap,
+            d_pad=d_pad, align=align, metric=self.metric,
+            total_blocks=total_blocks, norms=norms, block_rows=br,
             scale=scale_rows if per_row else scale)
+
+    def _flat_layout_host(self, t0: int, t1: int, dev, cap: int, align: int,
+                          n_aligned: int, total_blocks: int,
+                          br: int) -> qk.ServingLayout:
+        """:meth:`_flat_layout` built in numpy (:func:`qk.layout_arrays_host`
+        per table, concatenated on the host): only the finished flat
+        arrays go to ``dev``, and the device never holds the raw
+        corpus."""
+        self._check_dtype()
+        corpus = self._corpus_host if self._corpus_host is not None else \
+            self.corpus.cpu().numpy()
+        dtype = self.serving_dtype
+        h_scale = qk.ext_scales_host(corpus, self.metric, self.int8_scale) \
+            if dtype == torch.int8 else None
+        rids, sts, cts = (t.cpu().numpy() for t in (self.row_ids, self.starts,
+                                                     self.counts))
+        parts = [qk.layout_arrays_host(
+            rids[t], sts[t], cts[t], corpus, cap=cap, n_aligned=n_aligned,
+            metric=self.metric, dtype=dtype, align=align, scale=h_scale)
+            for t in range(t0, t1)]
+
+        def flat(i):
+            return None if parts[0][i] is None else \
+                np.concatenate([p[i] for p in parts])
+
+        starts = np.stack([p[2] + t * n_aligned for t, p in enumerate(parts)])
+        scale = None
+        if parts[0][4] is not None:
+            scale = torch.from_numpy(flat(4)).to(dev)
+        elif h_scale is not None:
+            scale = torch.tensor(h_scale, dtype=torch.float32, device=dev)
+        norms = flat(3)
+        return qk.ServingLayout(
+            data=qk._host_data_tensor(flat(0), dtype, dev),
+            row_map=torch.from_numpy(flat(1)).to(dev),
+            starts=torch.from_numpy(starts.reshape(-1)).to(dev),
+            counts=self.counts[t0:t1].reshape(-1).to(dev), cap=cap,
+            d_pad=parts[0][0].shape[1], align=align, metric=self.metric,
+            total_blocks=total_blocks,
+            norms=None if norms is None else torch.from_numpy(norms).to(dev),
+            block_rows=br, scale=scale)
+
+    def _flat_geometry(self) -> _FlatGeometry:
+        """The flat bucket starts and counts of all ``L`` tables, computed
+        from the counts as the layouts place them (no rows built)."""
+        cap, align, n_aligned, _, br = self._geometry()
+        c = self.counts.long()
+        sizes = (c + align - 1) // align * align
+        offs = torch.arange(self.n_tables, device=c.device)[:, None]
+        starts = torch.cumsum(sizes, 1) - sizes + offs * n_aligned
+        return _FlatGeometry(starts.to(torch.int32).reshape(-1),
+                             self.counts.reshape(-1), cap,
+                             self.n_tables * n_aligned, br)
 
     # -- probes ----------------------------------------------------------------
 
@@ -360,8 +521,8 @@ class MultiTableIndexer:
                 torch.stack([v for _, v in out]))
 
     def _flat_probes(self, pids, pvalid):
-        """``(L, nq, P)`` per-table probes -> ``(nq, L*P)`` bucket ids of
-        the flat ``L * NB`` bucket space."""
+        """``(Lc, nq, P)`` per-table probes -> ``(nq, Lc*P)`` bucket ids of
+        the flat ``Lc * NB`` bucket space."""
         L, nq, n_probes = pids.shape
         offs = torch.arange(L, dtype=torch.int32, device=pids.device)
         gp = (pids.permute(1, 0, 2) + (offs * self.n_buckets)[None, :, None])
@@ -388,16 +549,48 @@ class MultiTableIndexer:
         top = torch.where(torch.isfinite(top_d), top, -1).to(torch.int32)
         return top, top_d, n_distinct
 
-    def _gather_query(self, queries, pids, pvalid, k: int):
+    def _gather_query(self, queries, pids, pvalid, k: int, t0: int, t1: int,
+                      dev):
+        """Tables ``[t0, t1)``'s gather engine on ``dev``, a query chunk at
+        a time: ``(top_ids, top_d, n_distinct)``."""
         chunk = _mt_query_chunk(self.n_tables, pids.shape[-1],
                                 self.probe_budget, queries.shape[1])
+        tabs = [t[t0:t1].to(dev) for t in (self.row_ids, self.starts,
+                                           self.counts)]
+        corpus = self._corpus_on(dev)
+        queries, pids, pvalid = (t.to(dev) for t in (queries, pids[t0:t1],
+                                                      pvalid[t0:t1]))
         parts = [self._gather_rerank(
-            self.row_ids, self.starts, self.counts, self.corpus,
-            queries[s:s + chunk], pids[:, s:s + chunk], pvalid[:, s:s + chunk],
-            k, self.probe_budget, self.metric, self.corpus.shape[0])
+            *tabs, corpus, queries[s:s + chunk], pids[:, s:s + chunk],
+            pvalid[:, s:s + chunk], k, self.probe_budget, self.metric,
+            self.n_rows)
             for s in range(0, queries.shape[0], chunk)]
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[2] for p in parts]))
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+    def _gather_serve(self, queries, pids, pvalid, k: int):
+        """The gather engine: each entry reranks its tables' candidates;
+        with a mesh the per-entry lists merge by a STABLE sort by id,
+        duplicate ids dropped, the ``k`` nearest kept (lowest flat index
+        first among equal distances), and ``n_candidates`` is the psum
+        of the per-entry distinct counts (an upper bound)."""
+        outs = [self._gather_query(queries, pids, pvalid, k, t0, t1, dev)
+                for t0, t1, dev in self._entries()]
+        if self.mesh is None:
+            top, _, nd = outs[0]
+            return top, nd
+        nq = queries.shape[0]
+        all_i, all_d = (all_gather([o[i] for o in outs]).permute(
+            1, 0, 2).reshape(nq, -1) for i in (0, 1))
+        order = torch.argsort(torch.where(all_i < 0, self.n_rows, all_i),
+                              dim=1, stable=True)
+        si = torch.gather(all_i, 1, order)
+        sd = torch.gather(all_d, 1, order)
+        dup = torch.zeros_like(si, dtype=torch.bool)
+        dup[:, 1:] = si[:, 1:] == si[:, :-1]
+        sd = torch.where(dup | (si < 0), torch.inf, sd)
+        top_d, arg = smallest_k(sd, k)
+        top = torch.where(torch.isfinite(top_d), torch.gather(si, 1, arg), -1)
+        return top.to(torch.int32), psum([o[2] for o in outs])
 
     @torch.no_grad()
     def exact_query_size(self, queries, hash_times: int = 1,
@@ -414,10 +607,9 @@ class MultiTableIndexer:
                                     probe_mode)
         query_chunk = _mt_query_chunk(self.n_tables, hash_times,
                                       self.probe_budget, 1)
-        n_rows = self.corpus.shape[0]
         out = [torch.sum(_union_rows(
             self.row_ids, self.starts, self.counts, pids[:, s:s + query_chunk],
-            pvalid[:, s:s + query_chunk], self.probe_budget, n_rows)[1],
+            pvalid[:, s:s + query_chunk], self.probe_budget, self.n_rows)[1],
             dim=1, dtype=torch.int32)
             for s in range(0, queries.shape[0], query_chunk)]
         return torch.cat(out).cpu().numpy()
@@ -429,14 +621,17 @@ class MultiTableIndexer:
                   generator: torch.Generator | None = None,
                   probe_mode: str = "sample") -> int:
         """Size the windowed engine's group table from a representative
-        batch: its exact group count (one device reduction, read on the
-        host), times ``_CAL_MARGIN``, rounded up to ``_GROUP_EB`` and
-        clamped to the static bound.  Later windowed serves use it when a
-        batch's exact need fits it and the static bound otherwise.
-        Returns the group count."""
+        batch: its exact group count over the flat layout of all ``L``
+        tables (one device reduction, read on the host), times
+        ``_CAL_MARGIN``, rounded up to ``_GROUP_EB`` and clamped to the
+        static bound.  Later windowed serves without a mesh use it when a
+        batch's exact need fits it and the static bound otherwise (a
+        table-sharded serve takes the static bound, as the JAX package's
+        does).  Returns the group count."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
-        layout = self._serving_layout()
+        layout = self._serving_layout() if self.mesh is None else \
+            self._flat_geometry()
         br = layout.br
         gp, gv = self._flat_probes(*self._probes(queries, hash_times,
                                                  generator, probe_mode))
@@ -459,36 +654,55 @@ class MultiTableIndexer:
         needed = _windowed_needed(layout, gp, gv)
         return (self._g_cal if needed <= self._g_cal else None), needed
 
-    def _query_serving(self, queries, pids, pvalid, k: int, plain: bool):
-        """One windowed, grouped or fixed-cap serve over the flat layout,
-        then the duplicate collapse.  ``n_candidates`` is the summed
-        probed occupancy across tables."""
-        layout = self._serving_layout()
+    def _serve_flat(self, layout: qk.ServingLayout, queries, pids, pvalid,
+                    k: int, plain: bool):
+        """One windowed, grouped or fixed-cap serve of the ``Lc`` tables
+        of ``layout`` (per-table probes ``(Lc, nq, P)``), fetching
+        ``k * Lc``: ``(ids, scores, n_cand)`` before the duplicate
+        collapse; ``n_cand`` is the summed probed occupancy."""
         cap, br = layout.cap, layout.br
         gp, gv = self._flat_probes(pids, pvalid)
-        n_probes = pids.shape[-1]
-        k_fetch = min(k * self.n_tables, n_probes * self.n_tables * cap)
+        lc, _, n_probes = pids.shape
+        k_fetch = min(k * lc, n_probes * lc * cap)
         if self.engine == "windowed":
-            g_override, _ = self.windowed_group_bound(layout, gp, gv)
-            ids, scores, n_cand = serving_query_windowed(
+            g_override = None
+            if self.mesh is None:
+                g_override, _ = self.windowed_group_bound(layout, gp, gv)
+            return serving_query_windowed(
                 layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
                 g_total_override=g_override, plain=plain)
-        elif self.engine == "fixed":
-            ids, scores, n_cand = serving_query(
-                layout, queries, gp, gv, layout.counts, k=k_fetch,
-                plain=plain)
+        if self.engine == "fixed":
+            return serving_query(layout, queries, gp, gv, layout.counts,
+                                 k=k_fetch, plain=plain)
+        # ensemble buckets have low multiplicity, so the static bound is
+        # several-fold loose: one host read for the exact one
+        g_exact = qk.grouped_exact_bound(layout.counts, gp, gv, cap,
+                                         qk.GROUP_W, block_rows=br)
+        static = qk.grouped_static_bound(gp.numel(), cap // br,
+                                         layout.total_blocks, qk.GROUP_W)
+        return serving_query_grouped(
+            layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
+            g_total_override=qk.round_group_override(g_exact, static),
+            plain=plain)
+
+    def _query_serving(self, queries, pids, pvalid, k: int, plain: bool):
+        """Every entry's serve of its tables, then the duplicate collapse
+        over the gathered lists; ``n_candidates`` is the summed probed
+        occupancy across all tables."""
+        outs = []
+        for (t0, t1, dev), layout in zip(self._entries(),
+                                         self._entry_layouts()):
+            outs.append(self._serve_flat(
+                layout, queries.to(dev), pids[t0:t1].to(dev),
+                pvalid[t0:t1].to(dev), k, plain))
+        if self.mesh is None:
+            ids, scores, n_cand = outs[0]
         else:
-            # ensemble buckets have low multiplicity, so the static bound
-            # is several-fold loose: one host read for the exact one
-            g_exact = qk.grouped_exact_bound(layout.counts, gp, gv, cap,
-                                             qk.GROUP_W, block_rows=br)
-            static = qk.grouped_static_bound(gp.numel(), cap // br,
-                                             layout.total_blocks, qk.GROUP_W)
-            ids, scores, n_cand = serving_query_grouped(
-                layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
-                g_total_override=qk.round_group_override(g_exact, static),
-                plain=plain)
-        merged, _ = self._dedupe_topk(ids, scores, k, self.corpus.shape[0])
+            nq = queries.shape[0]
+            ids, scores = (all_gather([o[i] for o in outs]).permute(
+                1, 0, 2).reshape(nq, -1) for i in (0, 1))
+            n_cand = psum([o[2] for o in outs])
+        merged, _ = self._dedupe_topk(ids, scores, k, self.n_rows)
         return merged, n_cand
 
     @staticmethod
@@ -523,7 +737,7 @@ class MultiTableIndexer:
         pids, pvalid = self._probes(queries, hash_times, generator,
                                     probe_mode)
         if self.engine == "gather":
-            return self._gather_query(queries, pids, pvalid, k)
+            return self._gather_serve(queries, pids, pvalid, k)
         return self._query_serving(queries, pids, pvalid, k, plain)
 
     @staticmethod

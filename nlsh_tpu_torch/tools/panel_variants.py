@@ -193,11 +193,12 @@ def main() -> int:
             lib = build_variant(name, workdir)
 
             def launch():
-                err = lib.nlsh_grouped_scores(
-                    qk._DTYPE_CODE[data.dtype], qk._ptr(grp_qvecs),
-                    qk._ptr(data), qk._ptr(grp_block), qk._ptr(out), g_total,
-                    G, d_pad, br, data.shape[0] // br, G * d_pad,
-                    qk._stream(data.device))
+                with torch.cuda.device(data.device):
+                    err = lib.nlsh_grouped_scores(
+                        qk._DTYPE_CODE[data.dtype], qk._ptr(grp_qvecs),
+                        qk._ptr(data), qk._ptr(grp_block), qk._ptr(out),
+                        g_total, G, d_pad, br, data.shape[0] // br,
+                        G * d_pad, qk._stream(data.device))
                 qk._raise_on(err, name)
 
             ms = cs.cuda_ms(launch, 20)

@@ -65,18 +65,20 @@ def launch(lib, data, qvecs, block, lo, hi, kk: int, br: int, norms=None,
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
     g_total, G, d_pad = qvecs.shape
-    scores = torch.empty(g_total, G, kk, device=data.device)
-    lanes = torch.empty(g_total, G, kk, dtype=torch.int32, device=data.device)
-    tail = (qk._ptr(norms), qk._ptr(scale_rows), qk._ptr(scores),
-            qk._ptr(lanes), g_total, G, d_pad, br, data.shape[0] // br, kk,
-            qk._stream(data.device))
-    head = (qk._DTYPE_CODE[data.dtype], qk._ptr(qvecs), qk._ptr(data),
-            qk._ptr(block))
-    if lo is None:
-        err = lib.nlsh_grouped_scores_topk(*head, qk._ptr(hi), *tail)
-    else:
-        err = lib.nlsh_windowed_scores_topk(*head, qk._ptr(lo), qk._ptr(hi),
-                                            *tail)
+    with torch.cuda.device(data.device):  # the launch's device is current
+        scores = torch.empty(g_total, G, kk, device=data.device)
+        lanes = torch.empty(g_total, G, kk, dtype=torch.int32,
+                            device=data.device)
+        tail = (qk._ptr(norms), qk._ptr(scale_rows), qk._ptr(scores),
+                qk._ptr(lanes), g_total, G, d_pad, br, data.shape[0] // br,
+                kk, qk._stream(data.device))
+        head = (qk._DTYPE_CODE[data.dtype], qk._ptr(qvecs), qk._ptr(data),
+                qk._ptr(block))
+        if lo is None:
+            err = lib.nlsh_grouped_scores_topk(*head, qk._ptr(hi), *tail)
+        else:
+            err = lib.nlsh_windowed_scores_topk(*head, qk._ptr(lo),
+                                                qk._ptr(hi), *tail)
     qk._raise_on(err, "the phase build's launch")
     return scores, lanes
 

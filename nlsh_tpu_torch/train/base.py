@@ -355,13 +355,16 @@ class Trainer(abc.ABC):
         ``lr_schedule``: ``"constant"``, ``"cosine"`` or ``"linear"``
         decay to ``learning_rate * lr_end_frac`` over the run, with an
         optional linear ``warmup_steps`` ramp.  ``resume_from``: a
-        ``.state`` file of either package.  ``mesh`` (data-parallel
-        training) is not ported: the multi-GPU slice (``ROADMAP.md``,
-        Queue 1 item 4) brings it."""
+        ``.state`` file of either package.  ``mesh``: a 1-D
+        :class:`~nlsh_tpu_torch.parallel.mesh.Mesh`; each step's batch is
+        then split over its entries with the gradients ``pmean``-ed
+        (:func:`nlsh_tpu_torch.parallel.dp.build_dp_segment_runner`), and
+        the state lives on its first device (``device`` is not used)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training (mesh=) is not ported yet: it comes "
-                "with the multi-GPU slice, ROADMAP.md Queue 1 item 4")
+            from nlsh_tpu_torch.parallel.dp import build_dp_segment_runner
+
+            device = mesh.devices[0]
+            dp_segment = build_dp_segment_runner(self, batch_size, mesh)
         device = resolve_device(device)
         if not self.data.prepared:
             self.data.load()
@@ -414,9 +417,13 @@ class Trainer(abc.ABC):
                     if seg <= 0:
                         stop = True
                         break
-                state, losses = self.run_segment(state, corpus, knn, arrays,
-                                                 done, seg, batch_size,
-                                                 step_seed)
+                if mesh is None:
+                    state, losses = self.run_segment(
+                        state, corpus, knn, arrays, done, seg, batch_size,
+                        step_seed)
+                else:
+                    state, losses = dp_segment(state, corpus, knn, arrays,
+                                               done, seg, step_seed)
                 base_step = state.step - seg
                 for i, loss in enumerate(losses.cpu().numpy()):
                     self.logger.log("training/loss", float(loss),

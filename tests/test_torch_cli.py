@@ -148,9 +148,44 @@ def test_queries_file_and_sampled_probes(workdir, capsys):
     assert a["n_queries"] == 37 and a["query_size"] == b["query_size"]
 
 
-def test_shards_is_refused_not_ignored(workdir):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tserve.main(["--model_path", str(workdir / "model"), "--data_id",
+def test_shards_is_refused_not_ignored(workdir, capsys):
+    """``--shards 2 --device cpu`` serves a ShardedIndexer over a 2-entry
+    CPU mesh and prints the JAX package's line (its run over 2 of the
+    conftest's virtual devices): the same keys, ``n_queries``, ``k``,
+    ``hash_times`` and ``query_size``, recall within 0.005, ids on >=
+    0.98 of the slots; the index file it saves restores in both CLIs
+    (the JAX one reads the port's engine name); an ensemble artifact is
+    refused; bad engines and the parser's defaults as before."""
+    common = ["--model_path", str(workdir / "model"), "--data_id",
+              "synthetic", "--probe_mode", "flip", "--hash_times", "6",
+              "--shards", "2"]
+    want = _run(jserve, common + ["--engine", "xla",
+                                  "--output", str(workdir / "j.npz")], capsys)
+    got = _run(tserve, common + ["--device", "cpu", "--engine", "gather",
+                                 "--index_path", str(workdir / "idx.npz"),
+                                 "--output", str(workdir / "t.npz")], capsys)
+    assert set(got) == set(want) == RESULT_KEYS | {"output"}
+    for key in ("n_queries", "k", "hash_times", "query_size"):
+        assert got[key] == want[key], key
+    assert abs(got["recall_at_k"] - want["recall_at_k"]) <= 0.005
+    with np.load(workdir / "t.npz") as t, np.load(workdir / "j.npz") as j:
+        np.testing.assert_array_equal(t["n_candidates"], j["n_candidates"])
+        assert (t["topk_ids"] == j["topk_ids"]).mean() >= 0.98
+    back = _run(tserve, common + ["--device", "cpu", "--engine", "grouped",
+                                  "--index_path", str(workdir / "idx.npz")],
+                capsys)
+    assert back["engine"] == "gather" and back["query_size"] == \
+        got["query_size"]
+    j_back = _run(jserve, common + ["--index_path", str(workdir / "idx.npz")],
+                  capsys)
+    assert j_back["engine"] == "xla"
+    assert j_back["query_size"] == want["query_size"]
+    jh = j_hashing("MultivariateBernoulli", j_encoder("siren", 32, [32]), 6)
+    jckpt.save_model(str(workdir / "ens"), jh,
+                     init_multi_table(jh, 2, jax.random.PRNGKey(1)),
+                     n_tables=2)
+    with pytest.raises(ValueError, match="ensemble"):
+        tserve.main(["--model_path", str(workdir / "ens.json"), "--data_id",
                      "synthetic", "--device", "cpu", "--shards", "2"])
     with pytest.raises(SystemExit):
         tserve.main(["--model_path", "x", "--data_id", "synthetic",

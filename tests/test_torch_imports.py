@@ -33,6 +33,8 @@ def test_port_imports_no_jax():
                  "models.hashings",
                  "index.bucket_table", "index.indexer", "index.query",
                  "index.serving", "parallel", "parallel.multitable",
+                 "parallel.mesh", "parallel.multihost", "parallel.dp",
+                 "parallel.sharded_index",
                  "utils.checkpoint", "utils.metrics", "utils.fingerprint",
                  "utils.env", "ops.knn", "data", "data.datasets",
                  "data.binformats", "cli", "cli.serve", "tools.topk_phases",

@@ -127,13 +127,55 @@ def test_unported_and_invalid_requests_raise(tmp_path):
                   if r.get("kind") == "metric"}
     assert set(logged) == {"test/recall", "test/query_size", "test/qps"}
     assert logged["test/recall"] == pytest.approx(recall) and recall > 0.9
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        main(common + ["--n_devices", "2"])
     with pytest.raises(RuntimeError, match="not valid"):
         main(common + ["-ht", "MultivariateBernoulli", "-dt", "Cosine"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             main(common + ["--device", "cuda"])
+
+
+def _printed(capsys):
+    """The CLI's printed lines, meta dicts parsed (without the port's
+    ``device`` key)."""
+    import ast
+
+    out = []
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            d = ast.literal_eval(line)
+            d.pop("device", None)
+            out.append(d)
+        elif line.strip():
+            out.append(line)
+    return out
+
+
+def test_n_devices_trains_data_parallel_like_the_jax_cli(tmp_path, capsys):
+    """``--n_devices 2 --device cpu`` splits each step's batch over a
+    2-entry CPU mesh and prints the JAX package's lines (its run over 2
+    of the conftest's virtual devices), ``{'n_devices': 2}`` among
+    them."""
+    import jax
+
+    from nlsh_tpu.cli.train import main as j_main
+
+    argv = TINY[:-2] + ["--debug", "--max_steps", "4", "--test_every_updates",
+                        "4", "--n_devices", "2"]
+    capsys.readouterr()
+    state = main(argv + ["--device", "cpu", "--model_save_dir",
+                         str(tmp_path / "t")])
+    ours = _printed(capsys)
+    j_state = j_main(argv + ["--model_save_dir", str(tmp_path / "j")])
+    theirs = _printed(capsys)
+    assert state.step == int(j_state.step) == 4
+    assert {"n_devices": 2} in ours and ours == theirs
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.params["hashing"].parameters())
+    assert jax.device_count() == 8
+    with pytest.raises(ValueError, match="not divisible"):
+        main(TINY[:-2] + ["--device", "cpu", "--debug", "--max_steps", "2",
+                          "-bs", "255", "--n_devices", "2",
+                          "--model_save_dir", str(tmp_path / "x")])
 
 
 @pytest.mark.parametrize("metric", ["cosine", "sq_euclidean"])

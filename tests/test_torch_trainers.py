@@ -15,6 +15,7 @@ import torch
 
 from nlsh_tpu_torch import train as T
 from nlsh_tpu_torch.models import get_encoder, get_hashing
+from nlsh_tpu_torch.parallel import make_mesh
 from nlsh_tpu_torch.utils import checkpoint as tckpt
 from nlsh_tpu_torch.utils.loggers import JSONLLogger
 from torch_train_common import make_data
@@ -158,9 +159,19 @@ def test_resume_continues_at_the_saved_step(tmp_path):
 
 
 def test_cuda_without_a_card_raises_and_mesh_is_not_ported(tmp_path):
+    """A CUDA request without a card raises; ``fit(mesh=)`` (the
+    data-parallel path, ported now) runs on a CPU mesh for every
+    learner family's segment and refuses a batch the mesh does not
+    divide."""
     tr = LEARNERS["random"](_head(), str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tr.fit(**{**FIT, "device": "cuda"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.fit(**FIT, mesh=object())
+        with pytest.raises(ValueError, match="only 0 available"):
+            make_mesh(2)
+    for name in ("random", "proposed", "ensemble"):
+        state = LEARNERS[name](_head(), str(tmp_path / name)).fit(
+            **FIT, mesh=make_mesh(2, platform="cpu"))
+        assert state.step == 8 and _finite(state), name
+    with pytest.raises(ValueError, match="not divisible"):
+        tr.fit(**{**FIT, "batch_size": 63}, mesh=make_mesh(2, platform="cpu"))
