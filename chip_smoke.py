@@ -140,6 +140,28 @@ more than once (the entries run one after another), each phase one line:
   build and pass times,
   QPS at 2,000 and 16,384 queries, peak device memory.
 
+Then BASELINE's configurations 1 and 2 (``benchmarks/configs.py``'s
+``config_1`` and ``config_2`` on their synthetic stand-ins, as
+``nlsh_tpu_torch.data.configs`` holds them, the kNN on the card), trained
+and served through ``TripletTrainer.fit``, ``Indexer`` and
+``Indexer.query``, each phase one line:
+
+* ``config1``: glove-25 shape, 100,000 x 25, cosine;
+  ``MultivariateBernoulli(TwoLayer256Relu(25), 8)`` fitted 400 steps
+  (balance 0, batch 1024), served at 10 sampled probes from a CUDA
+  generator on the grouped engine at the largest bucket's budget;
+* ``config2``: sift-128 shape, 1,000,000 x 128, euclidean; a 12-bit
+  SIREN 128->256->256 fitted 400 steps on a 131,072-row subset (balance
+  1.5, batch 2048), served f32 grouped at 16 flip probes.
+
+Each holds recall@10 and mean candidates to the windows of the JAX
+package's own fits (``train_anchor.py --config 1|2``), the grouped serve
+to the gather engine on the same probes (candidates equal, ids >= 0.98)
+and K1 to its plain version (1,000 queries: candidates equal, ids >=
+0.999), and reports ``train_s``, ``build_s``, the pass time, QPS, peak
+device memory and K1's time beside its bound at the serve's shapes
+(d = 25 on a layout padded to 128 features; d = 128 unpadded).
+
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
 the grouped serve; K3: the ensemble serve; K4: the windowed serve at
@@ -822,10 +844,12 @@ def _row_scale(lay):
     return lay.scale if lay.scale is not None and lay.scale.ndim == 1 else None
 
 
-def _topk_check(name: str, got, want) -> float:
+def _topk_check(name: str, got, want, relative: bool = False) -> float:
     """A fused kernel's (scores, lanes) against its plain version's: the
-    same -inf pattern, scores within SCORE_TOL, lanes equal on >= 0.999
-    of the finite slots (near-ties may swap).  Returns the max error."""
+    same -inf pattern, scores within SCORE_TOL (``relative``: SCORE_TOL
+    times the largest score magnitude, if above 1, for euclidean scores
+    ``2 q.c - |c|^2``), lanes equal on >= 0.999 of the finite slots
+    (near-ties may swap).  Returns the max error."""
     import torch
 
     fin = torch.isfinite(want[0])
@@ -833,7 +857,9 @@ def _topk_check(name: str, got, want) -> float:
     check(bool((got[1] == want[1])[fin].float().mean() >= 0.999),
           f"{name} lanes vs plain at the main path's shapes")
     err = float((got[0] - want[0])[fin].abs().max())
-    check(err <= SCORE_TOL, f"{name} error {err} at the main path's shapes")
+    tol = SCORE_TOL * (max(1.0, float(want[0][fin].abs().max()))
+                       if relative else 1.0)
+    check(err <= tol, f"{name} error {err} > {tol} at the main path's shapes")
     return err
 
 
@@ -849,11 +875,12 @@ def _panel_err(name: str, got, want, lay, blk) -> float:
     return err
 
 
-def _grouped_times(lay, q, pid, pv) -> dict:
-    """K1/K2 and their plain versions at the grouped prep of all the
-    queries on ``lay``: CUDA-event times and max score error.  Bounds
-    count the queries' own width (the metric-extended one, cosine and
-    euclidean alike), not the layout's padded ``d_pad``."""
+def _grouped_times(lay, q, pid, pv, panel: bool = True) -> dict:
+    """K1/K2 (K1 alone unless ``panel``) and their plain versions at the
+    grouped prep of all the queries on ``lay``: CUDA-event times and max
+    score error (relative on a euclidean layout).  Bounds count the
+    queries' own width (the metric-extended one, cosine and euclidean
+    alike), not the layout's padded ``d_pad``."""
     import torch
 
     from nlsh_tpu_torch.ops.cuda import bounds
@@ -870,13 +897,23 @@ def _grouped_times(lay, q, pid, pv) -> dict:
     out = {}
     k1 = qk.grouped_scores_topk(*args, grp_cnt, K, **kw)
     err = _topk_check("K1", k1,
-                      qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw))
+                      qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw),
+                      relative=lay.metric == "euclidean")
     out["grouped_scores_topk"] = kernel_entry(
         err, cuda_ms(lambda: qk.grouped_scores_topk(*args, grp_cnt, K, **kw), 20),
         cuda_ms(lambda: qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw), 3),
         bounds.topk_counts(*args, None, grp_cnt, K, lay.br, q.shape[1],
                            kw["norms"], kw["scale_rows"]),
         None, NO_LIBRARY_TOPK)
+    shape = {"g_total": g_total, "group_q": 32, "block_rows": lay.br,
+             "d_pad": lay.d_pad,
+             "live_groups": int((grp_cnt.max(dim=1).values > 0).sum()),
+             "live_slots": int((grp_cnt > 0).sum()),
+             "topk_blocks_per_sm": qk.topk_blocks_per_sm(
+                 lay.data.dtype, lay.d_pad, windowed=False)}
+    if not panel:
+        torch.cuda.synchronize()
+        return {**shape, "kernels": out}
     panel = qk.grouped_scores(*args, block_rows=lay.br)
     k2_is_k1 = _panel_is_topk("K2", panel, k1, lay)
     err = _panel_err("K2", panel,
@@ -890,12 +927,7 @@ def _grouped_times(lay, q, pid, pv) -> dict:
                             q.shape[1]),
         bmm_ms(*args, lay.br, 5), LIBRARY_BMM)
     torch.cuda.synchronize()
-    return {"g_total": g_total, "group_q": 32, "block_rows": lay.br,
-            "d_pad": lay.d_pad,
-            "live_groups": int((grp_cnt.max(dim=1).values > 0).sum()),
-            "live_slots": int((grp_cnt > 0).sum()),
-            "topk_blocks_per_sm": qk.topk_blocks_per_sm(
-                lay.data.dtype, lay.d_pad, windowed=False),
+    return {**shape,
             "panel_blocks_per_sm": qk.panel_blocks_per_sm(lay.data.dtype,
                                                           lay.d_pad),
             "k2_panel_is_k1_scores_bitwise": k2_is_k1,
@@ -3104,13 +3136,14 @@ def phase_train_dp(data) -> None:
          losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s)
 
 
-class _Config5Data:
-    """config_5's training set: the subset, its self-kNN, 256 queries."""
+class _SubsetData:
+    """A configuration's training set: the subset, its self-kNN, 256
+    queries (config 5's and config 2's)."""
 
-    def __init__(self, subset, sub_knn, queries, gt):
+    def __init__(self, subset, sub_knn, queries, gt, metric="cosine"):
         self.training, self.training_self_knn = subset, sub_knn
         self.testing, self.ground_truth = queries[:256], gt[:256]
-        self.metric, self.prepared, self.dim = "cosine", True, subset.shape[1]
+        self.metric, self.prepared, self.dim = metric, True, subset.shape[1]
 
     def load(self):
         return self
@@ -3162,7 +3195,7 @@ def phase_config5(tmp: str) -> dict:
                        device=DEVICE).cpu().numpy()
     head = get_hashing("MultivariateBernoulli",
                        get_encoder("siren", 96, [256, 256]), CONFIG5_BITS)
-    trainer = TripletTrainer(head, _Config5Data(subset, sub_knn, queries, gt),
+    trainer = TripletTrainer(head, _SubsetData(subset, sub_knn, queries, gt),
                              os.path.join(tmp, "config5"), margin=0.5,
                              positive_k=20, balance_lambda=1.5)
     t0 = time.perf_counter()
@@ -3244,6 +3277,164 @@ def phase_config5(tmp: str) -> dict:
     return launches
 
 
+# the windows of config 1 and 2 (``nlsh_tpu_torch.data.configs``) on the
+# card: the JAX package's fits at seeds 0-3 served by the port's plain CPU
+# serve (train_anchor.py --config 1|2 --seeds 0 1, then 2 3), their range
+# widened by about its width.
+# Config 1 (CPU probe seeds 0-2): recall 0.88050-0.90160, candidates
+# 3915.56-4487.00; config 2: recall 0.98643-0.99294 (0.99276, 0.99216,
+# 0.99294, 0.98643), candidates 3873.47-3893.46
+CONFIG_WINDOWS = {
+    "1": {"recall": (0.86, 0.925), "n_cand": (3500.0, 5000.0)},
+    "2": {"recall": (0.980, 0.997), "n_cand": (3700.0, 4050.0)},
+}
+CONFIG_PROBE_SEED = 1        # the card generator of config 1's sampled probes
+CONFIG_PLAIN_QUERIES = 1_000  # queries of the K1-vs-plain serve
+CONFIG_PASSES = 5
+
+
+def phase_config(name: str, tmp: str) -> dict:
+    """BASELINE's configuration ``name`` (``data.configs.CONFIGS``) on
+    the card through the port's entry points: its data from
+    ``config_data``
+    (ground truth and, up to 200,000 rows, the self-kNN on the card; for
+    config 2 a 131,072-row subset drawn with ``default_rng(0)`` and its
+    self-kNN from ``ops.knn.self_knn``), the head (config 1:
+    ``MultivariateBernoulli(TwoLayer256Relu(25), 8)``; config 2: a
+    12-bit SIREN 128->256->256) fitted by ``TripletTrainer.fit`` as
+    ``benchmarks/configs.py``'s ``_train`` fits it, an ``Indexer`` of the
+    full corpus (grouped, f32, the largest bucket as probe budget) and
+    the 10,000 queries served at the configuration's probes (config 1
+    sampled from a CUDA generator seeded ``CONFIG_PROBE_SEED``, config 2
+    flip).  Recall@10 and mean candidates in ``CONFIG_WINDOWS``; the
+    gather engine on the same draws (a fresh generator of the same seed):
+    candidates equal per query, ids >= 0.98; K1 against its plain version
+    on ``CONFIG_PLAIN_QUERIES`` queries: candidates equal, ids >= 0.999;
+    K1's times at the serve's shapes.  Peak device memory of each stage:
+    the data (its kNN), the subset's self-kNN, the fit, the build and
+    serve, the checks; the phase's wall time.  Returns the serve's
+    launches."""
+    import torch
+
+    from nlsh_tpu_torch import models
+    from nlsh_tpu_torch.data.configs import (CONFIGS, config_data,
+                                             config_encoder)
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.ops.knn import self_knn
+    from nlsh_tpu_torch.train import TripletTrainer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    cfg, window = CONFIGS[name], CONFIG_WINDOWS[name]
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    data = config_data(*cfg["data"], device=DEVICE)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    peak_gib = {"data": torch.cuda.max_memory_allocated() / 2 ** 30}
+    corpus, queries, gt = data.training, data.testing, data.ground_truth
+    metric, dim = data.metric, data.dim
+    train_data, knn_s = data, None
+    if cfg["subset"]:
+        sub = np.random.default_rng(0).choice(corpus.shape[0], cfg["subset"],
+                                              replace=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sub_knn = self_knn(corpus[sub], k=20, metric=metric,
+                           device=DEVICE).cpu().numpy()
+        knn_s = time.perf_counter() - t0
+        peak_gib["subset_knn"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_data = _SubsetData(corpus[sub], sub_knn, queries, gt, metric)
+    check(train_data.training_self_knn.shape == (train_data.training.shape[0],
+                                                 20), "the self-kNN's shape")
+    head = models.MultivariateBernoulli(config_encoder(models, cfg, dim),
+                                        cfg["bits"])
+    trainer = TripletTrainer(head, train_data,
+                             os.path.join(tmp, f"config{name}"),
+                             margin=0.5, positive_k=20,
+                             balance_lambda=cfg["balance_lambda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(K=K, batch_size=cfg["batch_size"], learning_rate=1e-3,
+                        epochs=1000, test_every_updates=10 ** 9,
+                        max_steps=cfg["steps"],
+                        hash_times=cfg["train_hash_times"], device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(state.step == cfg["steps"], f"config {name} fit: {state.step} steps")
+    peak_gib["fit"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = Indexer(state.params["hashing"], corpus, device=DEVICE,
+                  metric=metric, engine="grouped",
+                  serving_dtype=torch.float32)
+    lay = idx.layout
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sampled = cfg["probe_mode"] == "sample"
+
+    def draws():
+        """A fresh generator: every engine serves the same probes."""
+        return (torch.Generator(device=DEVICE).manual_seed(CONFIG_PROBE_SEED)
+                if sampled else None)
+
+    kw = dict(k=K, hash_times=cfg["hash_times"], probe_mode=cfg["probe_mode"])
+    reset_launches()
+    ids, n_cand = idx.query(queries, generator=draws(), **kw)
+    timed = _timed_passes(lambda: idx.query(queries, generator=draws(), **kw),
+                          CONFIG_PASSES)
+    launches = read_launches("grouped_scores_topk")
+    peak_gib["build_serve"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(ids.shape == (queries.shape[0], K), "result shape")
+    check(bool(((ids >= -1) & (ids < corpus.shape[0])).all()), "id range")
+    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    check(window["recall"][0] <= recall <= window["recall"][1],
+          f"config {name} recall@10 {recall} outside {window['recall']}")
+    check(window["n_cand"][0] <= mean_cand <= window["n_cand"][1],
+          f"config {name} mean n_candidates {mean_cand} outside "
+          f"{window['n_cand']}")
+
+    torch.cuda.reset_peak_memory_stats()
+    n = CONFIG_PLAIN_QUERIES
+    k_ids, k_cand = idx.query(queries[:n], generator=draws(), **kw)
+    p_ids, p_cand = idx.query(queries[:n], generator=draws(), plain=True,
+                              **kw)
+    vs_plain = id_agreement(k_ids, p_ids)
+    check(bool(np.array_equal(k_cand, p_cand)) and vs_plain >= 0.999,
+          f"config {name}: K1 vs its plain version {vs_plain}")
+    idx.engine = "gather"
+    g_ids, g_cand = idx.query(queries, generator=draws(), **kw)
+    idx.engine = "grouped"
+    check(bool(np.array_equal(g_cand, n_cand)),
+          f"config {name}: gather candidates differ from grouped")
+    vs_gather = id_agreement(ids, g_ids)
+    check(vs_gather >= 0.98,
+          f"config {name}: grouped vs gather {vs_gather} < 0.98")
+
+    q = torch.as_tensor(queries, device=DEVICE)
+    with torch.no_grad():
+        pid, pv = idx.hashing.hash(q, n_probes=cfg["hash_times"],
+                                   generator=draws(),
+                                   probe_mode=cfg["probe_mode"])
+    k1 = _grouped_times(lay, q, pid, pv, panel=False)
+    peak_gib["checks"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(f"config{name}", n_corpus=int(corpus.shape[0]), dim=dim,
+         metric=metric, n_queries=int(queries.shape[0]), bits=cfg["bits"],
+         probe_mode=cfg["probe_mode"], hash_times=cfg["hash_times"], k=K,
+         data_s=data_s, subset_knn_s=knn_s, train_steps=state.step,
+         train_s=train_s, build_s=build_s, max_bucket=idx.table.max_count(),
+         buckets_used=idx.n_buckets_used(), cap=lay.cap, block_rows=lay.br,
+         d_pad=lay.d_pad, recall_at_10=recall, mean_n_candidates=mean_cand,
+         window=window, **timed, qps=queries.shape[0] / timed["median_s"],
+         k1_vs_plain=vs_plain, grouped_vs_gather=vs_gather,
+         peak_device_gib=peak_gib, launches=launches, k1_times=k1,
+         phase_s=time.perf_counter() - t_phase)
+    del idx, lay, q
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -3297,6 +3488,9 @@ def main() -> int:
     # from new callers, with the counts set to 0 just before each
     new_callers = {}
     with tempfile.TemporaryDirectory() as tmp:
+        # the synthetic sets' kNN cache (config 2's is 0.5 GB) lives and
+        # dies with the run
+        os.environ["NLSH_SYNTH_CACHE_DIR"] = tmp
         phase_artifact(corpus, tmp)
         restored, new_callers["persist"] = phase_persist(
             idx, midx, corpus, queries, gt, (ids, n_cand, build_s),
@@ -3342,6 +3536,9 @@ def main() -> int:
         new_callers["sharded"] = phase_sharded(corpus, queries, gt, tmp)
         del corpus
         new_callers["config5"] = phase_config5(tmp)
+        # BASELINE's configurations 1 and 2, trained and served
+        for name in CONFIG_WINDOWS:
+            new_callers[f"config{name}"] = phase_config(name, tmp)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")

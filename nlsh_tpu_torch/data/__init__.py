@@ -16,3 +16,4 @@ from nlsh_tpu_torch.data.datasets import (  # noqa: F401
     SyntheticDataset,
     get_data_by_id,
 )
+from nlsh_tpu_torch.data.configs import config_data  # noqa: F401

@@ -26,9 +26,11 @@ def default_query_chunk(n_probes: int, probe_budget: int, dim: int) -> int:
 def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` smallest entries of each row, ascending, the lowest
     index first among equal values — ``jax.lax.top_k(-x)``'s order,
-    which ``torch.topk`` does not promise."""
+    which ``torch.topk`` does not promise.  Copies, not views: a view
+    would keep the whole sorted ``x`` alive in a caller that collects the
+    rows (``knn`` over 256 query tiles held 33.8 GiB that way)."""
     v, i = torch.sort(x, dim=1, stable=True)
-    return v[:, :k], i[:, :k]
+    return v[:, :k].contiguous(), i[:, :k].contiguous()
 
 
 @torch.no_grad()

@@ -3,6 +3,7 @@
 from nlsh_tpu_torch.models.encoders import (  # noqa: F401
     MLPEncoder,
     SirenEncoder,
+    TwoLayer256Relu,
     get_encoder,
 )
 from nlsh_tpu_torch.models.hashings import (  # noqa: F401

@@ -77,6 +77,11 @@ class MLPEncoder(nn.Module):
         return x
 
 
+def TwoLayer256Relu(input_dim: int, with_bias: bool = True) -> MLPEncoder:
+    """The two-layer ReLU trunk of width 256."""
+    return MLPEncoder(input_dim, (256, 256), with_bias=with_bias)
+
+
 class SirenEncoder(nn.Module):
     """Sinusoidal trunk: ``sin(w0 * (Wx + b))`` layers, ``w0_initial``
     on the first, ``w0`` on the hidden ones, and a linear last layer.

@@ -70,6 +70,12 @@ def jsd_categorical(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (_kl(p, m) + _kl(q, m)) / 2.0
 
 
+def hellinger_categorical(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Hellinger distance between rows of categoricals:
+    ``(..., k) x (..., k) -> (...)``; NaN gradient at equal rows."""
+    return norm(torch.sqrt(p) - torch.sqrt(q)) / math.sqrt(2.0)
+
+
 def kl_multivariate_bernoulli(p, q, epsilon: float = _DEFAULT_EPS):
     """Mean-over-bits KL between multivariate Bernoullis, with the
     reference's asymmetric epsilon placement: ``(..., k) -> (...)``."""
@@ -105,6 +111,13 @@ def entropy_multivariate_bernoulli(p, epsilon: float = _DEFAULT_EPS):
     positive = -p * torch.log(p + epsilon)
     negative = -(1.0 - p) * torch.log(1.0 - p + epsilon)
     return torch.mean(positive + negative, dim=-1)
+
+
+def cross_entropy_multivariate_bernoulli(p, q, epsilon: float = _Q_FLOOR):
+    """KL + the entropy of p, both mean over bits; note the epsilon
+    default, ``_Q_FLOOR``, not :func:`kl_multivariate_bernoulli`'s."""
+    return kl_multivariate_bernoulli(p, q, epsilon) + \
+        entropy_multivariate_bernoulli(p, epsilon)
 
 
 def _sq_norm(x, keepdim=False):
@@ -157,8 +170,7 @@ class MVBernoulliCrossEntropy:
         self.epsilon = epsilon
 
     def rowwise(self, p, q):
-        return kl_multivariate_bernoulli(p, q, self.epsilon) + \
-            entropy_multivariate_bernoulli(p, self.epsilon)
+        return cross_entropy_multivariate_bernoulli(p, q, self.epsilon)
 
     def pairwise(self, p, q):
         return _pairwise_kl_mvb(p, q, self.epsilon) + \

@@ -37,7 +37,8 @@ def test_port_imports_no_jax():
                  "parallel.sharded_index",
                  "utils.checkpoint", "utils.metrics", "utils.fingerprint",
                  "utils.env", "ops.knn", "data", "data.datasets",
-                 "data.binformats", "cli", "cli.serve", "tools.topk_phases",
+                 "data.binformats", "data.configs", "cli", "cli.serve",
+                 "tools.topk_phases",
                  "tools.panel_variants", "tools.fixed_events",
                  "ops.code_distances", "utils.loggers", "train", "train.base",
                  "train.triplet", "train.siamese", "train.proposed",
@@ -45,3 +46,14 @@ def test_port_imports_no_jax():
                  "cli.precompute", "cli.evaluate", "native", "train.hnsw",
                  "utils.profiling"):
         assert f"nlsh_tpu_torch.{name}" in report["modules"]
+
+
+def test_last_public_names_exist():
+    """The names that came last, beside the JAX package's."""
+    from nlsh_tpu_torch.models import TwoLayer256Relu
+    from nlsh_tpu_torch.ops.code_distances import (
+        cross_entropy_multivariate_bernoulli, hellinger_categorical)
+
+    assert TwoLayer256Relu(25).output_dim == 256
+    for fn in (hellinger_categorical, cross_entropy_multivariate_bernoulli):
+        assert callable(fn)

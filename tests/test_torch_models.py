@@ -13,10 +13,12 @@ import torch
 
 from nlsh_tpu.models.encoders import MLPEncoder as JMLP
 from nlsh_tpu.models.encoders import SirenEncoder as JSiren
+from nlsh_tpu.models.encoders import TwoLayer256Relu as JTwoLayer
 from nlsh_tpu.models.hashings import MultivariateBernoulli as JMVB
 from nlsh_tpu.ops import packing as jpacking
 from nlsh_tpu_torch.models import (
-    MLPEncoder, MultivariateBernoulli, SirenEncoder, get_hashing,
+    MLPEncoder, MultivariateBernoulli, SirenEncoder, TwoLayer256Relu,
+    get_hashing,
 )
 from nlsh_tpu_torch.ops import packing
 from nlsh_tpu_torch.utils.checkpoint import params_from_jax
@@ -65,6 +67,30 @@ def test_encoder_forward_matches_jax(kind, kw):
     want = np.asarray(jh.encoder.apply(params["encoder"], jnp.asarray(x)))
     got = th.encoder(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_two_layer_256_relu_matches_jax(with_bias):
+    """``TwoLayer256Relu`` is the (256, 256) ReLU MLP; its forward pass
+    equals the JAX encoder's after ``params_from_jax`` (atol 1e-5), and
+    so do the hard codes of an 8-bit head on it (config 1's)."""
+    tenc = TwoLayer256Relu(25, with_bias=with_bias)
+    assert isinstance(tenc, MLPEncoder)
+    assert tenc.output_dim == 256 and tenc.hidden_dims == (256, 256)
+    assert all((layer.bias is not None) == with_bias for layer in tenc.layers)
+    jh = JMVB(JTwoLayer(25, with_bias=with_bias), 8)
+    params = jh.init(jax.random.PRNGKey(3))
+    th = MultivariateBernoulli(tenc, 8)
+    params_from_jax(th, jax.tree.map(np.asarray, params))
+    x = _x(d=25)
+    want = np.asarray(jh.encoder.apply(params["encoder"], jnp.asarray(x)))
+    with torch.no_grad():
+        got = th.encoder(torch.from_numpy(x)).numpy()
+        codes = th.hash_hard(torch.from_numpy(x)).numpy()
+    assert got.shape == (300, 256)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(
+        codes, np.asarray(jh.hash_hard(params, jnp.asarray(x))))
 
 
 @pytest.mark.parametrize("kind", ["siren", "mlp"])

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The training gate's anchor: the JAX package's bench fit, served by the port.
+"""The training gates' anchors: the JAX package's fits, served by the port.
 
     JAX_PLATFORMS=cpu python3 train_anchor.py --seeds 0 1 --out <dir>
+    JAX_PLATFORMS=cpu python3 train_anchor.py --config 1 --out <dir>
+    JAX_PLATFORMS=cpu python3 train_anchor.py --config 2 --out <dir>
 
 For each seed, the JAX package's ``TripletTrainer.fit`` at the bench's
 training configuration (``bench.TRAIN_CFG``: SIREN 100->256->256, 12-bit
@@ -13,10 +15,20 @@ rows) is served by the port's plain CPU serve: 10,000 queries, 16 flip
 probes, cap 512, k = 10, recall@10 against the committed ground truth.
 One JSON line per seed; the params go to ``<dir>/params_s<seed>.msgpack``.
 
-These are the numbers ``chip_smoke.py``'s ``train`` phase is held to: a
-model trained by another random stream lands in their neighbourhood, not
-on the committed params' values.  Imports JAX, so it runs where the JAX
-package runs, never on the card's machine.
+``--config 1`` and ``--config 2`` fit BASELINE's configurations 1 and 2
+as ``benchmarks/configs.py``'s ``config_1`` / ``config_2`` fit them
+(``nlsh_tpu_torch.data.configs``), on the synthetic stand-ins of its
+``_data`` (built by the JAX package; their kNN cached under
+``<dir>/synth_cache`` unless ``NLSH_SYNTH_CACHE_DIR`` is set), and serve
+the full corpus with the port's plain CPU serve at the configuration's
+probes: config 1's sampled probes once per ``CONFIG_PROBE_SEEDS`` seed of
+a CPU generator (the spread of the draws beside the spread of the fits),
+config 2's flip probes once.  One JSON line per serve.
+
+These are the numbers ``chip_smoke.py``'s ``train``, ``config1`` and
+``config2`` phases are held to: a model trained by another random stream
+lands in their neighbourhood, not on these values.  Imports JAX, so it
+runs where the JAX package runs, never on the card's machine.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GT = os.path.join(ROOT, "benchmarks", "artifacts", "bench_cache",
                   "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz")
 QUERY_CHUNK = 1000  # queries per plain serve call: bounds host memory
+CONFIG_PROBE_SEEDS = (0, 1, 2)  # CPU generators of config 1's sampled probes
 
 
 def _fit(seed: int, data, out_dir: str):
@@ -89,13 +102,121 @@ def _serve(params_path: str, corpus, queries, gt) -> dict:
             "buckets_used": idx.n_buckets_used()}
 
 
+def _config_data(cfg: dict):
+    """The configuration's workload (``_data``), and its training set:
+    the full data, or a subset with its self-kNN on the CPU."""
+    import jax.numpy as jnp
+
+    import bench
+    from benchmarks.configs import _data
+    from nlsh_tpu.ops.knn import self_knn
+
+    data = _data(*cfg["data"])
+    if not cfg["subset"]:
+        return data, data
+    sub = np.random.default_rng(0).choice(data.training.shape[0],
+                                          cfg["subset"], replace=False)
+    subset = data.training[sub]
+    sub_knn = np.asarray(self_knn(jnp.asarray(subset), k=20,
+                                  metric=data.metric))
+    return data, bench._BenchData(subset, data.testing[:256],
+                                  data.ground_truth[:256], sub_knn,
+                                  data.metric)
+
+
+def _config_fit(cfg: dict, seed: int, train_data, out_dir: str, name: str):
+    import jax
+    from flax import serialization
+
+    from benchmarks.configs import _StderrLogger
+    from nlsh_tpu import models
+    from nlsh_tpu.train import TripletTrainer
+    from nlsh_tpu_torch.data.configs import config_encoder
+
+    dim = train_data.training.shape[1]
+    hashing = models.get_hashing("MultivariateBernoulli",
+                                 config_encoder(models, cfg, dim), cfg["bits"])
+    trainer = TripletTrainer(hashing, train_data, out_dir,
+                             logger=_StderrLogger(), margin=0.5,
+                             positive_k=20,
+                             balance_lambda=cfg["balance_lambda"])
+    t0 = time.perf_counter()
+    state = trainer.fit(K=10, batch_size=cfg["batch_size"],
+                        learning_rate=1e-3, epochs=1000,
+                        test_every_updates=10 ** 9, max_steps=cfg["steps"],
+                        hash_times=cfg["train_hash_times"], seed=seed)
+    params = jax.tree.map(np.asarray, state.params["hashing"])
+    train_s = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"params_config{name}_s{seed}.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(params))
+    return path, train_s
+
+
+def _config_serves(cfg: dict, params_path: str, data):
+    """The port's plain CPU serve of the full corpus: one result per
+    ``CONFIG_PROBE_SEEDS`` seed (sampled probes), or one (flip probes)."""
+    import torch
+
+    from nlsh_tpu_torch import models
+    from nlsh_tpu_torch.data.configs import config_encoder
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    hashing = models.get_hashing("MultivariateBernoulli",
+                                 config_encoder(models, cfg, data.dim),
+                                 cfg["bits"])
+    params_from_jax(hashing, read_msgpack(params_path))
+    idx = Indexer(hashing, torch.from_numpy(data.training), device="cpu",
+                  metric=data.metric, engine="grouped")
+    sampled = cfg["probe_mode"] == "sample"
+    for ps in CONFIG_PROBE_SEEDS if sampled else [None]:
+        gen = torch.Generator().manual_seed(ps) if sampled else None
+        ids, n_cand = zip(*(
+            idx.query(data.testing[s: s + QUERY_CHUNK], k=10,
+                      hash_times=cfg["hash_times"], generator=gen,
+                      probe_mode=cfg["probe_mode"])
+            for s in range(0, data.testing.shape[0], QUERY_CHUNK)))
+        ids, n_cand = np.concatenate(ids), np.concatenate(n_cand)
+        yield {"probe_seed": ps,
+               "recall_at_10": float(calculate_recall(
+                   data.ground_truth[:, :10], ids, np.mean)),
+               "mean_n_candidates": float(n_cand.mean()),
+               "max_bucket": idx.table.max_count(),
+               "buckets_used": idx.n_buckets_used()}
+
+
+def main_config(name: str, seeds, out_dir: str) -> None:
+    from nlsh_tpu_torch.data.configs import CONFIGS
+
+    os.environ.setdefault("NLSH_SYNTH_CACHE_DIR",
+                          os.path.join(out_dir, "synth_cache"))
+    cfg = CONFIGS[name]
+    t0 = time.perf_counter()
+    data, train_data = _config_data(cfg)
+    data_s = time.perf_counter() - t0
+    for seed in seeds:
+        path, train_s = _config_fit(cfg, seed, train_data, out_dir, name)
+        for out in _config_serves(cfg, path, data):
+            print(json.dumps({"config": name, "seed": seed,
+                              "train_s": train_s, "data_s": data_s,
+                              "device": "cpu", **out}), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=("bench", "1", "2"), default="bench",
+                   help="the bench's fit, or BASELINE's configuration 1 "
+                        "or 2")
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     p.add_argument("--out", required=True,
                    help="directory for the trained params")
     args = p.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    if args.config != "bench":
+        main_config(args.config, args.seeds, args.out)
+        return
 
     import bench
 
