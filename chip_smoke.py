@@ -31,7 +31,22 @@ queries, recall@10 against the committed exact ground truth):
   with the batch's own calibration), K3/K4 times at the ensemble's group
   tables, parity against the plain scorer and the grouped and gather
   engines, and the guard: after a starved calibration the same batch
-  takes the static group bound and answers exactly as before.
+  takes the static group bound and answers exactly as before;
+* the one-dispatch serves (every ``Indexer.query`` and the ensemble's
+  windowed and fixed-cap ``query`` on the card replay a captured CUDA
+  graph, ``nlsh_tpu_torch.utils.graphs``): ``fused`` (after ``int8``)
+  holds ``_fused_serve``'s replay to the eager body of the same batch
+  bit for bit on the grouped, windowed and fixed-cap engines (f32; k =
+  10 and, for K2 / K4, k = 20) and the per-row int8 grouped engine,
+  recall and candidates in their windows, and times the eager and the
+  replayed pass, each one's device busy share (``torch.profiler``),
+  ``_fused_serve_batched``'s QPS over ``bench.glove100_fresh_pool(16)``
+  (16 x 10,000 fresh queries in one replay) and each graph's memory
+  pool; ``ensemble_fused`` (after ``ensemble_guard``) does the same for
+  ``_fused_mt_serve`` on the windowed engine at the batch's calibration
+  and on the fixed-cap engine, and forces the guard: at a starved
+  calibration the replay reads the batch's need with its ids and serves
+  it again at the static bound, with the calibrated serve's answer.
 
 Then the serving process, on the same workload, each phase one line:
 
@@ -269,6 +284,10 @@ LIBRARY_K7 = ("torch.matmul(queries, blocks^T) on the upcast blocks gathered "
               "before the timed region: the gather is left out")
 
 
+# the card's name and power limit, as phase_device reads them
+CARD = {"nvidia_smi": None}
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -403,6 +422,7 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD["nvidia_smi"] = smi
     tf32 = torch.backends.cuda.matmul.allow_tf32
     prec = torch.get_float32_matmul_precision()
     check(tf32 is False and prec == "highest",
@@ -1545,6 +1565,310 @@ def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
          groups_static=static, ids_equal=True, n_candidates_equal=True,
          pass_s=times, median_s=med, qps=queries.shape[0] / med)
     return {"groups_calibrated": g_starved, "groups_needed": needed}
+
+
+# ---------------------------------------------------------------------------
+# the one-dispatch serve: the fused serves as replayed CUDA graphs
+# ---------------------------------------------------------------------------
+
+FUSED_REPEATS = 16   # bench.py's PIPELINE_DEPTH: batches of the fresh pool
+FUSED_PASSES = 5     # timed passes of each of the eager and replayed serves
+FUSED_KERNEL = {"grouped": "grouped_scores_topk",
+                "windowed": "windowed_scores_topk",
+                "fixed": "bucket_scores_auto"}
+FUSED_PANEL = {"grouped": "grouped_scores", "windowed": "windowed_scores"}
+
+
+def _pass_ms(fn, n: int) -> list:
+    """Host milliseconds of ``n`` calls of ``fn``, each fetched to the
+    host (``fn`` ends in a copy to numpy)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _busy_share(fn) -> dict:
+    """The device's busy share of one pass of ``fn``: device time summed
+    over ``torch.profiler``'s device-side events of 3 passes, over the
+    unprofiled wall time of a pass (and over the profiled one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def passes():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    passes()
+    wall_ms = passes()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = passes()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type != torch.autograd.DeviceType.CPU) / 3e3
+    if device_ms <= 0:
+        return {"busy_share": None, "note": "not measured: the profile saw "
+                "no device time", "wall_ms": wall_ms}
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "profiled_wall_ms": profiled_ms,
+            "busy_share": device_ms / wall_ms,
+            "busy_share_profiled": device_ms / profiled_ms}
+
+
+def _batched_qps(run, n_queries: int) -> dict:
+    """``run()`` (one replay of ``FUSED_REPEATS`` batches, fetched) after
+    its capture, timed 3 times: the time per call and per batch, and
+    QPS = repeats * nq / call time."""
+    run()
+    call_ms = _pass_ms(run, 3)
+    med = float(np.median(call_ms))
+    return {"repeats": FUSED_REPEATS, "call_ms": call_ms,
+            "ms_per_batch": med / FUSED_REPEATS,
+            "qps": FUSED_REPEATS * n_queries / (med / 1e3)}
+
+
+def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
+    """The single table's one-dispatch serve (``_fused_serve``, a captured
+    CUDA graph replayed by ``Indexer.query``) on the grouped, windowed
+    and fixed-cap engines (f32) and the per-row int8 grouped engine: the
+    replay's ids and candidates bitwise the eager body's on the same
+    batch (k = 10; and k = 20 where K2 / K4 serve), recall and
+    candidates in their windows, the eager and the replayed pass (ms,
+    fetched), each device's busy share of one pass from
+    ``torch.profiler``, ``_fused_serve_batched``'s QPS over
+    ``bench.glove100_fresh_pool(16)`` (one replay, one fetch of 16 x
+    10,000 queries; its repeat 0 bitwise a single replay of the pool's
+    batch 0) and each captured graph's pool.  Returns the launch counts,
+    every one from replays: the counts are set to 0 after the capture."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.index.indexer import _fused_serve_batched, _serve_body
+    from nlsh_tpu_torch.utils.graphs import GraphCache
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    q = torch.as_tensor(queries, device=idx.device)
+    pool = torch.as_tensor(bench.glove100_fresh_pool(FUSED_REPEATS),
+                           device=idx.device)
+    kw = dict(hash_times=HASH_TIMES, probe_mode="flip")
+    launches, cases = [], {}
+    for engine, dtype in (("grouped", "float32"), ("windowed", "float32"),
+                          ("fixed", "float32"), ("grouped", "int8")):
+        name = f"{engine}_{dtype}"
+        idx.engine, idx.serving_dtype = engine, getattr(torch, dtype)
+        lay = idx.layout
+        res, packed = {}, {}
+        for k in (K, 2 * K) if dtype == "float32" and engine in FUSED_PANEL \
+                else (K,):
+            body = _serve_body(idx.hashing, lay, idx.table.counts, k=k,
+                               grouped=engine, **kw)
+            idx.query_async(q, k=k, **kw)  # the capture
+            res[f"k{k}_graph_pool_mib"] = \
+                idx._graphs.pool_bytes()[-1] / 2 ** 20
+            reset_launches()
+            packed[k] = idx.query_async(q, k=k, **kw)
+            kernel = FUSED_KERNEL[engine] if k == K else FUSED_PANEL[engine]
+            launches.append(read_launches(kernel))
+            with torch.no_grad():
+                eager = body(q, None)
+            check(bool(torch.equal(packed[k], eager)),
+                  f"fused {name} k={k}: the replay differs from the eager "
+                  "body")
+            res[f"k{k}_launches_per_replay"] = launches[-1][kernel]
+        ids, cand = Indexer.fetch(packed[K])
+        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        mean_cand = float(cand.mean())
+        if dtype == "float32":
+            check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1]
+                  and N_CAND_RANGE[0] <= mean_cand <= N_CAND_RANGE[1],
+                  f"fused {name}: recall {recall}, candidates {mean_cand}")
+        else:
+            check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1]
+                  and bool((cand == f32_cand).all()),
+                  f"fused {name}: recall {recall}, candidates differ")
+        body = _serve_body(idx.hashing, lay, idx.table.counts, k=K,
+                           grouped=engine, **kw)
+
+        def eager_pass():
+            with torch.no_grad():
+                return body(q, None).cpu().numpy()
+
+        def replay_pass():
+            return idx.query(q, k=K, **kw)
+
+        eager_ms = _pass_ms(eager_pass, FUSED_PASSES)
+        replay_ms = _pass_ms(replay_pass, FUSED_PASSES)
+        busy = {"eager": _busy_share(eager_pass),
+                "replay": _busy_share(replay_pass)}
+        graphs = GraphCache()
+        single = idx.query_async(pool[0], k=K, **kw).cpu().numpy()
+
+        def batched():
+            return _fused_serve_batched(
+                idx.hashing, lay, idx.table.counts, pool, k=K,
+                grouped=engine, repeats=FUSED_REPEATS, graphs=graphs,
+                **kw).cpu().numpy()
+
+        first = batched()
+        check(first.shape == (FUSED_REPEATS, queries.shape[0], K + 1)
+              and bool(np.array_equal(first[0], single)),
+              f"fused {name}: batched repeat 0 differs from its single "
+              "replay")
+        cases[name] = {
+            "recall_at_10": recall, "mean_n_candidates": mean_cand,
+            "replay_equals_eager": True, **res,
+            "eager_pass_ms": eager_ms,
+            "eager_median_ms": float(np.median(eager_ms)),
+            "replay_pass_ms": replay_ms,
+            "replay_median_ms": float(np.median(replay_ms)),
+            "busy": busy, "batched": _batched_qps(batched, queries.shape[0]),
+            "batched_graph_pool_mib": graphs.pool_bytes()[0] / 2 ** 20}
+        del graphs
+    idx.engine, idx.serving_dtype = "grouped", torch.float32
+    emit("fused", card=CARD["nvidia_smi"], n_queries=int(queries.shape[0]),
+         k=K, hash_times=HASH_TIMES, **cases)
+    return _summed(launches)
+
+
+def _summed(counts: list) -> dict:
+    out = {}
+    for got in counts:
+        for name, n in got.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
+                         mt_cand) -> dict:
+    """The ensemble's one-dispatch serve (``_fused_mt_serve``, replayed by
+    ``MultiTableIndexer.query``) on the windowed engine at the batch's
+    own calibration and on the fixed-cap engine: the replay bitwise the
+    eager body (the windowed one's guard row too), recall and summed
+    candidates in the ensemble's windows and equal to the ensemble
+    serve's, the forced guard (a starved calibration: the replay reads
+    the batch's need with its ids and serves it again at the static
+    bound: the same answer), the eager and the replayed pass, the busy
+    shares, ``_fused_mt_serve_batched``'s QPS over the fresh pool and the
+    graphs' pools.  Returns the launch counts, from replays."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.parallel.multitable import (
+        _fused_mt_serve_batched,
+        _Guarded,
+        _mt_serve_body,
+    )
+    from nlsh_tpu_torch.utils.graphs import GraphCache
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    q = torch.as_tensor(queries, device=midx.device)
+    pool = torch.as_tensor(bench.glove100_fresh_pool(FUSED_REPEATS),
+                           device=midx.device)
+    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    launches, cases = [], {}
+    for engine in ("windowed", "fixed"):
+        midx.engine = engine
+        layout = midx._serving_layout()
+        g_cal = midx.calibrate(queries, **kw) if engine == "windowed" \
+            else None
+        body = _mt_serve_body(midx.hashings, layout, k=K, engine=engine,
+                              n_rows=midx.n_rows, g_override=g_cal, **kw)
+
+        def replay():
+            res = midx.query_async(q, k=K, **kw)
+            return res.result() if isinstance(res, _Guarded) else res
+
+        replay()  # the capture
+        pool_mib = midx._graphs.pool_bytes()[-1] / 2 ** 20
+        reset_launches()
+        packed = replay()
+        launches.append(read_launches(FUSED_KERNEL[engine]))
+        with torch.no_grad():
+            eager = body(q, None)
+        res = {}
+        if g_cal is not None:
+            need = int(eager[-1, 0])
+            check(need <= g_cal, f"the batch ({need} groups) does not fit "
+                  f"its own calibration ({g_cal})")
+            res.update(groups_calibrated=g_cal, groups_needed=need)
+            eager = eager[:-1]
+        check(bool(torch.equal(packed, eager)),
+              f"fused ensemble {engine}: the replay differs from the eager "
+              "body")
+        ids, cand = Indexer.fetch(packed)
+        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        mean_cand = float(cand.mean())
+        check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1]
+              and MT_N_CAND_RANGE[0] <= mean_cand <= MT_N_CAND_RANGE[1],
+              f"fused ensemble {engine}: recall {recall}, candidates "
+              f"{mean_cand}")
+        check(bool((cand == mt_cand).all()),
+              f"fused ensemble {engine}: candidates differ from the serve's")
+        agree = id_agreement(mt_ids, ids)
+        check(agree >= 0.999, f"fused ensemble {engine} vs the serve "
+              f"{agree} < 0.999")
+
+        def eager_pass():
+            with torch.no_grad():
+                return body(q, None).cpu().numpy()
+
+        def replay_pass():
+            return midx.query(q, k=K, **kw)
+
+        eager_ms = _pass_ms(eager_pass, FUSED_PASSES)
+        replay_ms = _pass_ms(replay_pass, FUSED_PASSES)
+        busy = {"eager": _busy_share(eager_pass),
+                "replay": _busy_share(replay_pass)}
+        graphs = GraphCache()
+
+        def batched():
+            return _fused_mt_serve_batched(
+                midx.hashings, layout, pool, k=K, engine=engine,
+                n_rows=midx.n_rows, repeats=FUSED_REPEATS, g_override=g_cal,
+                graphs=graphs, **kw).cpu().numpy()
+
+        qps = _batched_qps(batched, queries.shape[0])
+        res.update(
+            recall_at_10=recall, mean_n_candidates=mean_cand,
+            vs_serve=agree, replay_equals_eager=True,
+            eager_pass_ms=eager_ms,
+            eager_median_ms=float(np.median(eager_ms)),
+            replay_pass_ms=replay_ms,
+            replay_median_ms=float(np.median(replay_ms)), busy=busy,
+            batched=qps, graph_pool_mib=pool_mib,
+            batched_graph_pool_mib=graphs.pool_bytes()[0] / 2 ** 20)
+        del graphs
+        if engine == "windowed":
+            # the forced guard: a starved calibration, the same batch
+            g_starved = midx.calibrate(queries[:4], hash_times=1,
+                                       probe_mode="flip")
+            midx.query_async(q, k=K, **kw).result()  # both captures
+            reset_launches()
+            guarded = midx.query_async(q, k=K, **kw)
+            need = int(guarded.packed[-1, 0])
+            check(isinstance(guarded, _Guarded) and need > g_starved,
+                  f"a batch of {need} groups fit a starved calibration of "
+                  f"{g_starved}")
+            check(bool(torch.equal(guarded.result(), packed)),
+                  "the guard's static-bound serve differs from the "
+                  "calibrated serve")
+            launches.append(read_launches(FUSED_KERNEL[engine]))
+            res["guard"] = {"groups_calibrated": g_starved,
+                            "groups_needed": need, "ids_equal": True,
+                            "n_candidates_equal": True}
+        cases[engine] = res
+    midx.engine = "windowed"
+    emit("ensemble_fused", card=CARD["nvidia_smi"],
+         n_queries=int(queries.shape[0]), k=K, hash_times=MT_HASH_TIMES,
+         **cases)
+    return _summed(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3474,6 +3798,8 @@ def main() -> int:
     times.update(fixed_times)
     launches.update(k6_launches)
     phase_int8(idx, queries, gt, n_cand)
+    # the one-dispatch serves: their kernels from replayed graphs
+    new_callers = {"fused": phase_fused(idx, queries, gt, n_cand)}
 
     midx, mt_build_s = phase_ensemble_index(corpus)
     mt_ids, mt_cand, mt_launches = phase_ensemble_serve(midx, queries, gt)
@@ -3483,10 +3809,11 @@ def main() -> int:
     times.update(phase_ensemble_kernel_times(midx, queries))
     phase_ensemble_parity(midx, queries, mt_ids, mt_cand)
     phase_ensemble_guard(midx, queries, mt_ids, mt_cand)
+    new_callers["ensemble_fused"] = phase_ensemble_fused(
+        midx, queries, gt, mt_ids, mt_cand)
 
     # the serving process: every path below runs kernels launched above
     # from new callers, with the counts set to 0 just before each
-    new_callers = {}
     with tempfile.TemporaryDirectory() as tmp:
         # the synthetic sets' kNN cache (config 2's is 0.5 GB) lives and
         # dies with the run

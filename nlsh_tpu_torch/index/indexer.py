@@ -5,7 +5,11 @@ Port of :mod:`nlsh_tpu.index.indexer`: constructor, lazy serving layout
 ``query``/``query_async``/``fetch``, the incremental updates
 (``add``/``remove``/``compact``) and ``save``/``load`` in the JAX
 package's npz format, so an index saved by either package loads in the
-other.  Engines: ``"grouped"`` (the grouped CUDA kernels K1/K2;
+other.  The grouped, windowed and fixed-cap engines serve through
+:func:`_fused_serve` (hash, probe, serve and pack as one replayed CUDA
+graph on the card, :mod:`nlsh_tpu_torch.utils.graphs`); its batched
+twin :func:`_fused_serve_batched` serves ``repeats`` batches in one
+replay.  Engines: ``"grouped"`` (the grouped CUDA kernels K1/K2;
 ``"auto"`` picks it on every device), ``"windowed"`` (the dense-window
 kernels K3/K4, on an 8-row-aligned layout), ``"fixed"`` (the fixed-cap
 kernel K5, the JAX package's ``"pallas"``, on the cap-aligned layout
@@ -41,6 +45,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     check_fingerprint,
     corpus_fingerprint,
 )
+from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache
 
 # a saved index holds the JAX package's engine and dtype names
 ENGINE_TO_JAX = {"auto": "auto", "gather": "xla", "fixed": "pallas",
@@ -95,6 +100,118 @@ def hash_corpus_host(hashing: nn.Module, corpus_np: np.ndarray, *, device,
             np.ascontiguousarray(corpus_np[s: s + chunk], np.float32))
         out[s: s + chunk] = hashing.hash_hard(block.to(device)).cpu().numpy()
     return out
+
+
+# a fused serve's engine by the JAX package's ``grouped`` values and the
+# port's engine names
+_SERVES = {True: serving_query_grouped, "grouped": serving_query_grouped,
+           False: serving_query, "fixed": serving_query,
+           "windowed": serving_query_windowed}
+
+
+def repeat_generator(generator: torch.Generator | None, i: int):
+    """Repeat ``i``'s generator of a batched serve, the counterpart of
+    the JAX package's ``fold_in(key, i)``: a new generator on
+    ``generator``'s device seeded ``(initial_seed() * 1_000_003 + i + 1)
+    mod 2**63``, derived on the host with no sync (None stays None)."""
+    if generator is None:
+        return None
+    seed = (generator.initial_seed() * 1_000_003 + i + 1) % 2 ** 63
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _serve_body(hashing, layout, full_counts, *, k: int, hash_times: int,
+                probe_mode: str, grouped, plain: bool = False):
+    """``body(queries, uniforms)`` of one fused serve: the probe hash
+    (sampled probes from the given uniforms), the engine's serve (with
+    the kernels' plain versions if ``plain``) and the pack into ONE
+    ``(nq, k+1)`` int32 tensor ``[topk_ids | n_candidates]``, as the JAX
+    package's ``_fused_serve`` packs it."""
+    serve = _SERVES[grouped]
+
+    def body(queries, uniforms):
+        probe_ids, probe_valid = hashing.hash(
+            queries, n_probes=hash_times, probe_mode=probe_mode,
+            uniforms=uniforms)
+        ids, _, n_cand = serve(layout, queries, probe_ids, probe_valid,
+                               full_counts, k=k, plain=plain)
+        return torch.cat([ids, n_cand[:, None]], dim=1)
+
+    return body
+
+
+@torch.no_grad()
+def _fused_serve(hashing, layout, full_counts, queries,
+                 generator: torch.Generator | None = None, *, k: int,
+                 hash_times: int, probe_mode: str, grouped,
+                 graphs: GraphCache | None = None) -> torch.Tensor:
+    """Hash + probe + serve in ONE replayed CUDA graph, returning ONE
+    packed ``(nq, k+1)`` int32 tensor ``[topk_ids | n_candidates]`` (the
+    JAX package's ``_fused_serve``).
+
+    ``grouped`` selects the engine: ``True``/``"grouped"``,
+    ``False``/``"fixed"`` or ``"windowed"``.  Sampled probes draw their
+    uniforms from ``generator`` before the replay (the head's own draw,
+    :meth:`probe_uniforms`) into the graph's static input, so a replay
+    answers as the eager serve does with the same generator.  The graph
+    is ``graphs``'s entry for the head, layout, counts, ``k``,
+    ``hash_times``, ``probe_mode``, engine and the queries' shape
+    (default: :data:`nlsh_tpu_torch.utils.graphs.DEFAULT`); CPU queries
+    run eagerly."""
+    body = _serve_body(hashing, layout, full_counts, k=k,
+                       hash_times=hash_times, probe_mode=probe_mode,
+                       grouped=grouped)
+    uniforms = hashing.probe_uniforms(queries.shape[0], hash_times, generator,
+                                      probe_mode, device=queries.device)
+    key = ("serve", id(hashing), id(layout), id(full_counts), k, hash_times,
+           probe_mode, _SERVES[grouped].__name__)
+    return (DEFAULT if graphs is None else graphs).run(
+        key, body, (queries, uniforms), holds=(hashing, layout, full_counts))
+
+
+@torch.no_grad()
+def _fused_serve_batched(hashing, layout, full_counts, queries,
+                         generator: torch.Generator | None = None, *, k: int,
+                         hash_times: int, probe_mode: str, grouped,
+                         repeats: int,
+                         graphs: GraphCache | None = None) -> torch.Tensor:
+    """``repeats`` full :func:`_fused_serve` batches in ONE replayed
+    graph, returning ``(repeats, nq, k+1)`` (the JAX package's
+    ``_fused_serve_batched``): one replay and one fetch for ``repeats *
+    nq`` queries.
+
+    ``queries`` may be ``(nq, d)``: repeat ``i`` then serves
+    ``torch.roll(queries, i * 1009, 0)``; or a FRESH-QUERY pool
+    ``(repeats, nq, d)``: repeat ``i`` serves ``queries[i]``.  Repeat
+    ``i``'s sampled probes draw from :func:`repeat_generator`
+    ``(generator, i)`` (the counterpart of ``fold_in(key, i)``), so each
+    repeat equals a standalone :func:`_fused_serve` of its batch with
+    that generator.  The capture frees each repeat's intermediates before
+    the next, so the graph's pool holds one repeat's, not ``repeats``."""
+    if queries.dim() == 3 and queries.shape[0] != repeats:
+        raise ValueError(
+            f"fresh-query pool has {queries.shape[0]} batches "
+            f"but repeats={repeats}")
+    one = _serve_body(hashing, layout, full_counts, k=k,
+                      hash_times=hash_times, probe_mode=probe_mode,
+                      grouped=grouped)
+    nq = queries.shape[-2]
+    draws = [hashing.probe_uniforms(nq, hash_times,
+                                    repeat_generator(generator, i),
+                                    probe_mode, device=queries.device)
+             for i in range(repeats)]
+    uniforms = None if draws[0] is None else torch.stack(draws)
+
+    def body(qs, us):
+        return torch.stack([
+            one(qs[i] if qs.dim() == 3 else torch.roll(qs, i * 1009, 0),
+                None if us is None else us[i])
+            for i in range(repeats)])
+
+    key = ("serve_batched", id(hashing), id(layout), id(full_counts), k,
+           hash_times, probe_mode, _SERVES[grouped].__name__, repeats)
+    return (DEFAULT if graphs is None else graphs).run(
+        key, body, (queries, uniforms), holds=(hashing, layout, full_counts))
 
 
 @torch.no_grad()
@@ -194,6 +311,7 @@ class Indexer:
         self.table = BucketTable(*(t.to(self.device) for t in table))
         self._fresh = None    # incremental-insert buffer (see :meth:`add`)
         self._deleted = None  # tombstoned ids, sorted (see :meth:`remove`)
+        self._graphs = GraphCache()  # the fused serve's graphs, this layout's
         self._budget_user = probe_budget is not None
         if probe_budget is None:
             probe_budget = self.table.max_count()
@@ -251,6 +369,7 @@ class Indexer:
             self.corpus = torch.cat([self.corpus, self._fresh])
         self._fresh = None
         self._layout = None
+        self._graphs.clear()  # they read the old layout and table
         codes = hash_corpus(self.hashing, self.corpus)
         if self._deleted is not None:
             dead = torch.from_numpy(self._deleted).to(self.device).long()
@@ -335,11 +454,14 @@ class Indexer:
         """Lazily built serving layout, rebuilt when a knob it depends on
         (bucket alignment — 8 rows for the windowed engine, else the cap —
         dtype, probe budget, block rows, layout mode, int8 scale mode)
-        changed since the last build; :meth:`compact` drops it."""
+        changed since the last build; :meth:`compact` drops it.  A rebuild
+        drops the fused serve's graphs of the old layout."""
         align = 8 if self.engine == "windowed" else None
         sig = (align, self.serving_dtype, int(self.probe_budget),
                self.block_rows, self.layout_mode, self.int8_scale)
         if self._layout is None or self._layout_sig != sig:
+            self._layout = None
+            self._graphs.clear()
             kw = dict(metric=self.metric, cap=self.probe_budget,
                       dtype=self.serving_dtype, align=align,
                       block_rows=self.block_rows, scale_mode=self.int8_scale)
@@ -363,12 +485,17 @@ class Indexer:
                     query_chunk: int | None = None,
                     probe_mode: str = "sample", plain: bool = False):
         """Enqueue a multi-probe query on the device without waiting:
-        returns ``(topk_ids, n_candidates)`` device tensors for
-        :meth:`fetch`.  Sampled probes draw from ``generator`` (default:
-        a fresh one seeded 0 on the index's device).  ``plain=True``
-        serves the grouped, windowed or fixed-cap engine with the
-        kernels' plain PyTorch versions (the reference the kernels are
-        checked against).
+        returns a result for :meth:`fetch`, ONE packed ``(nq, k+1)``
+        int32 tensor ``[topk_ids | n_candidates]`` from the grouped,
+        windowed and fixed-cap engines (the replay of :func:`_fused_serve`
+        on the card) and ``(topk_ids, n_candidates)`` from the gather
+        engine.  Sampled probes draw from ``generator`` (default: a fresh
+        one seeded 0 on the index's device).  ``plain=True`` serves the
+        grouped, windowed or fixed-cap engine eagerly with the kernels'
+        plain PyTorch versions (the reference the kernels are checked
+        against).  Inserts are merged and tombstones dropped after the
+        fused serve, as in the JAX package, so an insert captures nothing
+        new and a removal only changes the fetched ``k``.
 
         With tombstones pending (:meth:`remove`) the engine over-fetches
         ``k + next_pow2(#deleted)`` and the tombstones are dropped on the
@@ -378,36 +505,54 @@ class Indexer:
                                   device=self.device)
         m = self.n_deleted
         k_eff = k if m == 0 else k + (1 << (m - 1).bit_length())
-        ids, n_cand = self._query_raw(queries, k_eff, hash_times, generator,
-                                      query_chunk, probe_mode, plain)
-        if m:
-            dead = torch.from_numpy(self._deleted).to(self.device)
-            ids = _drop_deleted(ids, dead, k)
-        return ids, n_cand
+        res = self._query_raw(queries, k_eff, hash_times, generator,
+                              query_chunk, probe_mode, plain)
+        if not m:
+            return res
+        dead = torch.from_numpy(self._deleted).to(self.device)
+        if isinstance(res, tuple):
+            ids, n_cand = res
+            return _drop_deleted(ids, dead, k), n_cand
+        top = _drop_deleted(res[:, :-1].contiguous(), dead, k)
+        return torch.cat([top, res[:, -1:]], dim=1)
 
     def _query_raw(self, queries, k: int, hash_times: int, generator,
                    query_chunk, probe_mode: str, plain: bool):
-        """The engine's top ``k`` merged with the fresh-row buffer."""
+        """The engine's top ``k`` merged with the fresh-row buffer: packed
+        ``[ids | n_cand]`` from the grouped, windowed and fixed-cap engines
+        (the fused serve, or with ``plain`` its body run eagerly on the
+        plain kernels), ``(ids, n_cand)`` from the gather engine."""
         if generator is None and probe_mode == "sample" and hash_times > 1:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        if self.engine != "gather":
+            args = (self.hashing, self.layout, self.table.counts)
+            kw = dict(k=k, hash_times=hash_times, probe_mode=probe_mode,
+                      grouped="grouped" if self.engine == "auto"
+                      else self.engine)
+            if plain:
+                packed = _serve_body(*args, plain=True, **kw)(
+                    queries, self.hashing.probe_uniforms(
+                        queries.shape[0], hash_times, generator, probe_mode,
+                        device=queries.device))
+            else:
+                packed = _fused_serve(*args, queries, generator,
+                                      graphs=self._graphs, **kw)
+            if self._fresh is None:
+                return packed
+            top, n_cand = _merge_fresh(
+                self.corpus, self._fresh, queries, packed[:, :-1],
+                packed[:, -1], k=k, metric=self.metric)
+            return torch.cat([top, n_cand[:, None]], dim=1)
         probe_ids, probe_valid = self.hashing.hash(
             queries, n_probes=hash_times, generator=generator,
             probe_mode=probe_mode)
-        if self.engine != "gather":
-            serve = {"windowed": serving_query_windowed,
-                     "fixed": serving_query}.get(self.engine,
-                                                 serving_query_grouped)
-            ids, _, n_cand = serve(self.layout, queries, probe_ids,
-                                   probe_valid, self.table.counts, k=k,
-                                   plain=plain)
-        else:
-            if query_chunk is None:
-                query_chunk = default_query_chunk(
-                    hash_times, self.probe_budget, queries.shape[1])
-            ids, _, n_cand = query_bucket_table(
-                self.table, self.corpus, queries, probe_ids, probe_valid, k=k,
-                probe_budget=self.probe_budget, metric=self.metric,
-                query_chunk=query_chunk)
+        if query_chunk is None:
+            query_chunk = default_query_chunk(
+                hash_times, self.probe_budget, queries.shape[1])
+        ids, _, n_cand = query_bucket_table(
+            self.table, self.corpus, queries, probe_ids, probe_valid, k=k,
+            probe_budget=self.probe_budget, metric=self.metric,
+            query_chunk=query_chunk)
         if self._fresh is None:
             return ids, n_cand
         return _merge_fresh(self.corpus, self._fresh, queries, ids, n_cand,
@@ -415,9 +560,13 @@ class Indexer:
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
-        """``(topk_ids (nq, k), n_candidates (nq,))`` as numpy arrays."""
-        ids, n_cand = result
-        return ids.cpu().numpy(), n_cand.cpu().numpy()
+        """A :meth:`query_async` result on the host: ``(topk_ids (nq, k),
+        n_candidates (nq,))`` numpy arrays; a packed result is ONE copy."""
+        if isinstance(result, tuple):
+            ids, n_cand = result
+            return ids.cpu().numpy(), n_cand.cpu().numpy()
+        packed = result.cpu().numpy()
+        return packed[:, :-1], packed[:, -1]
 
     def query(self, queries, k: int = 10, hash_times: int = 10,
               generator: torch.Generator | None = None,

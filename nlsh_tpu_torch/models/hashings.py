@@ -80,6 +80,26 @@ class _Head(nn.Module):
         linear_init(self.out, generator)
         return self
 
+    #: uniforms per sampled probe (bits or bands); None: the head draws none
+    sample_width: int | None = None
+
+    def probe_uniforms(self, n: int, n_probes: int,
+                       generator: torch.Generator | None,
+                       probe_mode: str = "sample", device=None):
+        """The uniforms :meth:`hash` draws from ``generator`` for ``n``
+        rows, ``(n, n_probes - 1, sample_width)`` f32, drawn here so a
+        caller can hand them to :meth:`hash` (``uniforms=``) later, e.g.
+        into a captured graph's static input; the same draw as
+        :meth:`hash` makes itself.  None where nothing is sampled (one
+        probe, flip probes, a deterministic head)."""
+        if (self.sample_width is None or n_probes <= 1
+                or probe_mode == "flip"):
+            return None
+        if generator is None:
+            raise ValueError("multi-probe sampling needs a `generator`")
+        return torch.rand((n, n_probes - 1, self.sample_width),
+                          generator=generator, device=device)
+
 
 class MultivariateBernoulli(_Head):
     """Per-bit Bernoulli hashing; ``tanh_output`` uses tanh rescaled to
@@ -107,12 +127,19 @@ class MultivariateBernoulli(_Head):
         p = self.predict(x)
         return p / 2.0 + 0.5 if self.tanh_output else p
 
+    @property
+    def sample_width(self) -> int:
+        return self.hash_size
+
     def hash(self, x: torch.Tensor, n_probes: int = 1,
              generator: torch.Generator | None = None,
-             probe_mode: str = "sample") -> tuple[torch.Tensor, torch.Tensor]:
+             probe_mode: str = "sample",
+             uniforms: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         """Bucket ids ``(ids, valid)`` of shape ``(n, n_probes)``: probe 0
         is the hard code, the others Bernoulli samples of the code
-        (``"sample"``, drawn from ``generator``) or flips of the
+        (``"sample"``, from ``uniforms`` if given, else drawn from
+        ``generator`` by :meth:`probe_uniforms`) or flips of the
         least-confident bits (``"flip"``).  Ids are sorted per row, with
         repeats masked out of ``valid``."""
         if n_probes < 1:
@@ -126,10 +153,8 @@ class MultivariateBernoulli(_Head):
         if n_probes == 1:
             codes = hard
         else:
-            if generator is None:
-                raise ValueError("multi-probe sampling needs a `generator`")
-            u = torch.rand((x.shape[0], n_probes - 1, self.hash_size),
-                           generator=generator, device=p.device)
+            u = uniforms if uniforms is not None else self.probe_uniforms(
+                x.shape[0], n_probes, generator, device=p.device)
             codes = torch.cat([hard, (u < p[:, None, :]).to(torch.int32)], dim=1)
         return packing.hash_codes(codes)
 
@@ -170,11 +195,14 @@ class Categorical(_Head):
 
     def hash(self, x: torch.Tensor, n_probes: int = 1,
              generator: torch.Generator | None = None,
-             probe_mode: str = "sample") -> tuple[torch.Tensor, torch.Tensor]:
+             probe_mode: str = "sample",
+             uniforms: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         """The ``n_probes`` most probable buckets, ids sorted per row.
-        Deterministic, so ``generator`` and ``probe_mode`` are accepted
-        for a uniform interface only.  Probe slots past ``hash_size``
-        repeat the last id and are masked out of ``valid``."""
+        Deterministic, so ``generator``, ``probe_mode`` and ``uniforms``
+        are accepted for a uniform interface only.  Probe slots past
+        ``hash_size`` repeat the last id and are masked out of
+        ``valid``."""
         if n_probes < 1:
             raise ValueError(f"`n_probes` should be a positive integer, got {n_probes}")
         k_eff = min(n_probes, self.hash_size)
@@ -239,11 +267,18 @@ class ProductQuantization(_Head):
     def hash_hard(self, x: torch.Tensor) -> torch.Tensor:
         return self._pack_bands(torch.argmax(self._band_probs(x), dim=-1))
 
+    @property
+    def sample_width(self) -> int:
+        return self.n_bands
+
     def hash(self, x: torch.Tensor, n_probes: int = 1,
              generator: torch.Generator | None = None,
-             probe_mode: str = "sample") -> tuple[torch.Tensor, torch.Tensor]:
+             probe_mode: str = "sample",
+             uniforms: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         """Probe 0 is the hard code; the others sample each band's
-        categorical from ``generator`` (``"sample"``) or are the
+        categorical (``"sample"``, from ``uniforms`` if given, else drawn
+        from ``generator`` by :meth:`probe_uniforms`) or are the
         deterministic best-first probes of :meth:`_hash_flip`
         (``"flip"``).  Sampled ids are sorted per row, repeats masked."""
         if n_probes < 1:
@@ -253,11 +288,9 @@ class ProductQuantization(_Head):
             return self._hash_flip(p, n_probes)
         codes = torch.argmax(p, dim=-1)[:, None, :]            # (n, 1, M)
         if n_probes > 1:
-            if generator is None:
-                raise ValueError("multi-probe hashing needs a `generator`")
             # inverse-CDF draw of every (row, probe, band) categorical
-            u = torch.rand((x.shape[0], n_probes - 1, self.n_bands),
-                           generator=generator, device=p.device)
+            u = uniforms if uniforms is not None else self.probe_uniforms(
+                x.shape[0], n_probes, generator, device=p.device)
             cdf = torch.cumsum(p, dim=-1)
             cdf = cdf / cdf[..., -1:]
             sampled = torch.sum(u[..., None] >= cdf[:, None], dim=-1)

@@ -70,7 +70,8 @@ GROUP_W = 32       # queries per group of the grouped and windowed serves
 _GROUP_EB = 8      # group tables round up to a multiple of this
 ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
 
-# launches of each kernel; a wrapper adds one where it launches
+# launches of each kernel; a wrapper adds one where it launches, and a
+# replay of a captured graph adds its capture's (utils/graphs.py)
 KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
                    "windowed_scores_topk": 0, "windowed_scores": 0,
                    "bucket_scores_auto": 0, "bucket_scores_impl": 0,
@@ -501,6 +502,22 @@ def _probe_counts(layout_counts, probe_ids, probe_valid, cap: int):
     return safe, counts
 
 
+def _histogram(key, n_bins: int):
+    """``bincount(key, minlength=n_bins)`` for keys in ``[0, n_bins)``,
+    int64, as one scatter-add: ``torch.bincount`` on the card reads the
+    largest key on the host to size its output, which a captured graph
+    cannot do."""
+    key = key.reshape(-1).long()
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=key.device)
+    return hist.scatter_add_(0, key, torch.ones_like(key))
+
+
+def _repeat_each(t, n: int):
+    """``t.repeat_interleave(n)`` of a 1-D tensor as a broadcast, with no
+    host read on any version of torch."""
+    return t[:, None].expand(t.shape[0], n).reshape(-1)
+
+
 def _run_ranks(sk):
     """For sorted keys: the mask of each run's first key, and each key's
     rank inside its run of equal keys."""
@@ -522,9 +539,9 @@ def _sorted_probe_events(layout_starts, layout_counts, probe_ids,
     key = torch.where(counts > 0, safe, n_buckets).reshape(-1)   # (E,)
     order = torch.argsort(key, stable=True)
     sk = key[order]
-    sq = torch.arange(nq, device=key.device).repeat_interleave(n_probes)[order]
+    sq = _repeat_each(torch.arange(nq, device=key.device), n_probes)[order]
     _, rank = _run_ranks(sk)
-    hist = torch.bincount(key, minlength=n_buckets + 1)
+    hist = _histogram(key, n_buckets + 1)
     m = hist[torch.clamp(sk, 0, n_buckets)]
     return sk, sq, rank, m, hist, order, counts
 
@@ -542,7 +559,7 @@ def count_groups_v2(layout_starts, layout_counts, probe_ids, probe_valid,
     n_buckets = layout_counts.shape[0]
     safe, counts = _probe_counts(layout_counts, probe_ids, probe_valid, cap)
     key = torch.where(counts > 0, safe, n_buckets).reshape(-1)
-    hist = torch.bincount(key, minlength=n_buckets + 1)[:n_buckets]
+    hist = _histogram(key, n_buckets + 1)[:n_buckets]
     nb = _bucket_blocks(layout_counts, cap, block_rows)
     return torch.sum(nb * (-(-hist // group_q))).to(torch.int32)
 
@@ -588,10 +605,10 @@ def _grouped_prep_v2(layout_starts, layout_counts, probe_ids, probe_valid,
                               blockno.reshape(-1).to(torch.int32), 0)
     # (group, slot) flattened; dropped events keep an out-of-range index
     gs = torch.where(g_drop < g_total,
-                     g_drop * group_q + slot.repeat_interleave(max_blocks),
+                     g_drop * group_q + _repeat_each(slot, max_blocks),
                      g_total * group_q)
     n_slots = g_total * group_q
-    sq_b = sq.repeat_interleave(max_blocks).to(torch.int32)
+    sq_b = _repeat_each(sq, max_blocks).to(torch.int32)
     grp_qidx = _scatter_drop(n_slots, gs, sq_b, 0).reshape(g_total, group_q)
     grp_cnt = _scatter_drop(n_slots, gs, cnt_ij.reshape(-1).to(torch.int32),
                             0).reshape(g_total, group_q)
@@ -678,7 +695,7 @@ def _windowed_prep(layout_starts, layout_counts, probe_ids, probe_valid,
     dev = probe_ids.device
     wj, lo, hi, sub_valid = _window_sub_events(
         layout_starts, layout_counts, probe_ids, probe_valid, cap, max_sub, W)
-    qidx = torch.arange(nq, device=dev).repeat_interleave(n_probes)
+    qidx = _repeat_each(torch.arange(nq, device=dev), n_probes)
 
     big = 2 ** 30
     key = torch.where(sub_valid, wj, big).reshape(-1)

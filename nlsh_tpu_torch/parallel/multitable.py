@@ -11,8 +11,8 @@ table; the union of candidates is answered by one of four engines:
   ``t * n_aligned``), dense 8-row-aligned, served by the windowed engine
   (kernels K3/K4) in one call for all tables.  The group table is sized
   by :meth:`MultiTableIndexer.calibrate`'s bound when the batch's exact
-  need (one device reduction, read on the host) fits it, else by the
-  static bound, so no batch ever drops candidates.
+  need (one device reduction) fits it, else by the static bound, so no
+  batch ever drops candidates.
 * ``"grouped"``: the same flat layout block-aligned, served by the
   grouped engine (K1/K2) with the exact host-computed group bound.
 * ``"fixed"`` (the JAX package's ``"pallas"``): the flat layout
@@ -57,7 +57,7 @@ ported.
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -71,6 +71,7 @@ from nlsh_tpu_torch.index.indexer import (
     engine_from_jax,
     hash_corpus,
     hash_corpus_host,
+    repeat_generator,
 )
 from nlsh_tpu_torch.index.query import smallest_k
 from nlsh_tpu_torch.index.serving import (
@@ -86,6 +87,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     check_fingerprint,
     corpus_fingerprint,
 )
+from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache
 
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
@@ -116,15 +118,260 @@ class _FlatGeometry(NamedTuple):
     br: int
 
 
-def _windowed_needed(layout, gp, gv) -> int:
+def _windowed_needed_groups(layout, gp, gv) -> torch.Tensor:
     """The exact group count of a windowed serve of the flat probes
     ``(gp, gv)`` on ``layout`` (a :class:`qk.ServingLayout` or a
-    :class:`_FlatGeometry`): one device reduction, one int read."""
+    :class:`_FlatGeometry`): one device reduction, a 0-d tensor."""
     br = layout.br
-    return int(qk.windowed_needed_groups(
+    return qk.windowed_needed_groups(
         layout.starts, layout.counts, gp, gv, layout.cap,
         max_sub=layout.cap // br + 1, group_q=qk.GROUP_W,
-        n_windows=-(-layout.n_rows // br) + 1, block_rows=br))
+        n_windows=-(-layout.n_rows // br) + 1, block_rows=br)
+
+
+def _windowed_needed(layout, gp, gv) -> int:
+    """:func:`_windowed_needed_groups` read on the host (one int)."""
+    return int(_windowed_needed_groups(layout, gp, gv))
+
+
+def _table_uniforms(hashings, nq: int, hash_times: int,
+                    generator: torch.Generator | None, probe_mode: str,
+                    device):
+    """The uniforms of every table's sampled probes, ``(L, nq, P - 1,
+    w)``, or None where nothing is sampled: one generator per table,
+    seeded from ``generator`` (default: seeded 0) by one ``randint`` read
+    on the host, as the ensemble has always drawn them."""
+    if hash_times <= 1 or probe_mode != "sample":
+        return None
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    seeds = torch.randint(0, 2 ** 62, (len(hashings),), generator=generator,
+                          device=generator.device).tolist()
+    draws = [h.probe_uniforms(nq, hash_times,
+                              torch.Generator(device=device).manual_seed(s),
+                              probe_mode, device=device)
+             for h, s in zip(hashings, seeds)]
+    return None if draws[0] is None else torch.stack(draws)
+
+
+def _table_probes(hashings, queries, hash_times: int, probe_mode: str,
+                  uniforms):
+    """Per-table probe ids / validity ``(L, nq, P)``, sampled probes from
+    ``uniforms`` (:func:`_table_uniforms`)."""
+    out = [h.hash(queries, n_probes=hash_times, probe_mode=probe_mode,
+                  uniforms=None if uniforms is None else uniforms[t])
+           for t, h in enumerate(hashings)]
+    return (torch.stack([ids for ids, _ in out]),
+            torch.stack([v for _, v in out]))
+
+
+def _flat(pids, pvalid, n_buckets: int):
+    """``(Lc, nq, P)`` per-table probes -> ``(nq, Lc*P)`` bucket ids of
+    the flat ``Lc * NB`` bucket space."""
+    L, nq, n_probes = pids.shape
+    offs = torch.arange(L, dtype=torch.int32, device=pids.device)
+    gp = (pids.permute(1, 0, 2) + (offs * n_buckets)[None, :, None])
+    return (gp.reshape(nq, L * n_probes).to(torch.int32),
+            pvalid.permute(1, 0, 2).reshape(nq, L * n_probes))
+
+
+def _mt_engine(engine: str) -> str:
+    engine = engine_from_jax(engine)
+    if engine not in ("windowed", "grouped", "fixed"):
+        raise ValueError(f"the fused ensemble serve has no {engine!r} engine "
+                         "(windowed|grouped|fixed)")
+    return engine
+
+
+def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
+                   engine: str, n_rows: int, g_override: int | None,
+                   probe_mode: str):
+    """``body(queries, uniforms)`` of one fused ensemble serve: every
+    table's probe hash, the flat probes, the engine's serve of ``k * L``,
+    the duplicate collapse and the pack ``[topk_ids | n_candidates]``,
+    ``(nq, k+1)`` int32.  A windowed serve at a given ``g_override``
+    (the calibrated count) appends one row: the batch's exact group need
+    in column 0, zeros after (see :class:`_Guarded`)."""
+    L, n_buckets = len(hashings), hashings[0].n_buckets
+    guard = engine == "windowed" and g_override is not None
+
+    def body(queries, uniforms):
+        pids, pvalid = _table_probes(hashings, queries, hash_times,
+                                     probe_mode, uniforms)
+        gp, gv = _flat(pids, pvalid, n_buckets)
+        k_fetch = min(k * L, hash_times * L * layout.cap)
+        if engine == "windowed":
+            ids, scores, n_cand = serving_query_windowed(
+                layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
+                g_total_override=g_override)
+        elif engine == "grouped":
+            ids, scores, n_cand = serving_query_grouped(
+                layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
+                g_total_override=g_override)
+        else:
+            ids, scores, n_cand = serving_query(layout, queries, gp, gv,
+                                                layout.counts, k=k_fetch)
+        merged, _ = MultiTableIndexer._dedupe_topk(ids, scores, k, n_rows)
+        packed = torch.cat([merged, n_cand[:, None]], dim=1)
+        if not guard:
+            return packed
+        need = _windowed_needed_groups(layout, gp, gv).to(torch.int32)
+        tail = torch.cat([need.reshape(1, 1), torch.zeros(
+            (1, k), dtype=torch.int32, device=need.device)], dim=1)
+        return torch.cat([packed, tail])
+
+    return body
+
+
+class _Guarded:
+    """A windowed ensemble serve at a calibrated group count, its guard
+    read with its result.  ``packed`` is ``(nq + 1, k + 1)`` (or ``(R,
+    nq + 1, k + 1)`` for ``R`` batches), the last row of a batch holding
+    its exact group need in column 0; ``static(i)`` serves batch ``i``
+    again at the static bound.  This is the JAX package's ``lax.cond``
+    between the two (``nlsh_tpu/parallel/multitable.py``) with its other
+    branch taken late: the graph cannot branch on the device, so the
+    host reads the need in the same copy that fetches the ids and
+    re-serves a batch that needed more groups than it was given before
+    any of its ids is returned.  No batch loses candidates."""
+
+    def __init__(self, packed: torch.Tensor, g_override: int,
+                 static: Callable[[int], torch.Tensor]):
+        self.packed = packed
+        self.g_override = g_override
+        self.static = static
+
+    def result(self, host: bool = False):
+        """``(nq, k+1)`` (or ``(R, nq, k+1)``) packed ids and candidates:
+        numpy after ONE copy of ids, candidates and needs (``host``), or
+        on the device after one read of the needs."""
+        src = self.packed.cpu() if host else self.packed
+        need = src[..., -1, 0].reshape(-1)
+        if not host:
+            need = need.cpu()
+        out = src[..., :-1, :]
+        over = [i for i, n in enumerate(need.tolist()) if n > self.g_override]
+        if over:
+            out = out.clone()
+            for i in over:
+                redo = self.static(i)
+                redo = redo.cpu() if host else redo
+                if out.dim() == 3:
+                    out[i] = redo
+                else:
+                    out = redo
+        return out.numpy() if host else out.contiguous()
+
+
+def _fused_mt_async(hashings, layout, queries, uniforms, *, k: int,
+                    hash_times: int, engine: str, n_rows: int,
+                    g_override: int | None, probe_mode: str,
+                    repeats: int | None, graphs: GraphCache):
+    """The replay (on the CPU: the eager run) of the fused ensemble serve
+    of ``queries`` on given ``uniforms``, one batch (``repeats`` None) or
+    ``repeats`` in one graph: the packed result, or a :class:`_Guarded`
+    for a windowed serve at a ``g_override``."""
+    one = _mt_serve_body(hashings, layout, k=k, hash_times=hash_times,
+                         engine=engine, n_rows=n_rows, g_override=g_override,
+                         probe_mode=probe_mode)
+
+    def batch(i, qs, us):
+        q = qs[i] if qs.dim() == 3 else torch.roll(qs, i * 1009, 0)
+        return q, None if us is None else us[i]
+
+    if repeats is None:
+        body = one
+    else:
+        def body(qs, us):
+            return torch.stack([one(*batch(i, qs, us))
+                                for i in range(repeats)])
+
+    key = ("mt_serve", tuple(id(h) for h in hashings), id(layout), k,
+           hash_times, engine, n_rows, g_override, probe_mode, repeats)
+    packed = graphs.run(key, body, (queries, uniforms),
+                        holds=(*hashings, layout))
+    if engine != "windowed" or g_override is None:
+        return packed
+
+    def static(i):
+        q, u = (queries, uniforms) if repeats is None else \
+            batch(i, queries, uniforms)
+        return _fused_mt_async(hashings, layout, q, u, k=k,
+                               hash_times=hash_times, engine=engine,
+                               n_rows=n_rows, g_override=None,
+                               probe_mode=probe_mode, repeats=None,
+                               graphs=graphs)
+
+    return _Guarded(packed, g_override, static)
+
+
+@torch.no_grad()
+def _fused_mt_serve(hashings, layout, queries,
+                    generator: torch.Generator | None = None, *, k: int,
+                    hash_times: int, engine: str, n_rows: int,
+                    g_override: int | None = None,
+                    probe_mode: str = "sample",
+                    graphs: GraphCache | None = None) -> torch.Tensor:
+    """Probe-hash all ``L`` tables, serve the flat probes, collapse the
+    duplicates and pack ``[topk_ids | n_candidates]`` ``(nq, k+1)`` int32
+    in ONE replayed CUDA graph (the JAX package's ``_fused_mt_serve``).
+
+    ``hashings`` are the tables' heads, ``layout`` their flat layout
+    (``MultiTableIndexer._serving_layout``), ``engine`` ``"windowed"``,
+    ``"grouped"`` or ``"fixed"`` (or the JAX package's names),
+    ``n_rows`` the corpus rows.  ``g_override`` sizes the windowed or
+    grouped group table; on the windowed engine it is GUARDED: the graph
+    also computes the batch's exact need, and a batch that needs more is
+    served again at the static bound (:class:`_Guarded`; one int read
+    after the replay), so no candidate is lost.  Sampled probes draw one
+    generator per table from ``generator`` before the replay, as the
+    ensemble's eager serve does.  The graph is ``graphs``'s entry
+    (default: :data:`nlsh_tpu_torch.utils.graphs.DEFAULT`); CPU queries
+    run eagerly."""
+    uniforms = _table_uniforms(hashings, queries.shape[0], hash_times,
+                               generator, probe_mode, queries.device)
+    out = _fused_mt_async(
+        hashings, layout, queries, uniforms, k=k, hash_times=hash_times,
+        engine=_mt_engine(engine), n_rows=n_rows, g_override=g_override,
+        probe_mode=probe_mode, repeats=None,
+        graphs=DEFAULT if graphs is None else graphs)
+    return out.result() if isinstance(out, _Guarded) else out
+
+
+@torch.no_grad()
+def _fused_mt_serve_batched(hashings, layout, queries,
+                            generator: torch.Generator | None = None, *,
+                            k: int, hash_times: int, engine: str,
+                            n_rows: int, repeats: int,
+                            g_override: int | None = None,
+                            probe_mode: str = "sample",
+                            graphs: GraphCache | None = None
+                            ) -> torch.Tensor:
+    """``repeats`` full :func:`_fused_mt_serve` batches in ONE replayed
+    graph, ``(repeats, nq, k+1)`` (the JAX package's
+    ``_fused_mt_serve_batched``).  ``queries`` is ``(nq, d)`` (repeat
+    ``i`` serves ``torch.roll(queries, i * 1009, 0)``) or a fresh-query
+    pool ``(repeats, nq, d)``; repeat ``i``'s sampled probes draw from
+    :func:`~nlsh_tpu_torch.index.indexer.repeat_generator` ``(generator,
+    i)``.  A guarded windowed batch that needs more groups than
+    ``g_override`` is served again alone at the static bound."""
+    if queries.dim() == 3 and queries.shape[0] != repeats:
+        raise ValueError(
+            f"fresh-query pool has {queries.shape[0]} batches "
+            f"but repeats={repeats}")
+    nq = queries.shape[-2]
+    if generator is None:
+        generator = torch.Generator(device=queries.device).manual_seed(0)
+    draws = [_table_uniforms(hashings, nq, hash_times,
+                             repeat_generator(generator, i), probe_mode,
+                             queries.device) for i in range(repeats)]
+    uniforms = None if draws[0] is None else torch.stack(draws)
+    out = _fused_mt_async(
+        hashings, layout, queries, uniforms, k=k, hash_times=hash_times,
+        engine=_mt_engine(engine), n_rows=n_rows, g_override=g_override,
+        probe_mode=probe_mode, repeats=repeats,
+        graphs=DEFAULT if graphs is None else graphs)
+    return out.result() if isinstance(out, _Guarded) else out
 
 
 def _union_rows(row_ids, starts, counts, pids, pvalid, budget: int,
@@ -221,6 +468,7 @@ class MultiTableIndexer:
         self._stacked = None
         self._stacked_sig = None
         self._g_cal: int | None = None  # set by :meth:`calibrate`
+        self._graphs = GraphCache()  # the fused serve's, of this layout
         self.engine = engine
         if tables is None:
             # one table at a time: each hash + stable sort's transients only
@@ -261,6 +509,7 @@ class MultiTableIndexer:
         if old is not None and value != old:
             self._stacked = None
             self._g_cal = None
+            self._graphs.clear()
 
     # -- placement ---------------------------------------------------------------
 
@@ -373,6 +622,7 @@ class MultiTableIndexer:
                 return self._stacked
             self._g_cal = None  # calibrated for the stale layout
             self._stacked = None
+            self._graphs.clear()
         geometry = self._geometry()
         build = self._flat_layout_host if self.layout_mode == "host" \
             else self._flat_layout
@@ -505,29 +755,16 @@ class MultiTableIndexer:
         """Per-table probe ids / validity, ``(L, nq, P)``.  Flip probes
         are deterministic; sampled probes draw from one generator per
         table, seeded from ``generator`` (default: seeded 0)."""
-        gens = [None] * self.n_tables
-        if hash_times > 1 and probe_mode == "sample":
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            seeds = torch.randint(0, 2 ** 62, (self.n_tables,),
-                                  generator=generator,
-                                  device=generator.device).tolist()
-            gens = [torch.Generator(device=self.device).manual_seed(s)
-                    for s in seeds]
-        out = [h.hash(queries, n_probes=hash_times, generator=g,
-                      probe_mode=probe_mode)
-               for h, g in zip(self.hashings, gens)]
-        return (torch.stack([ids for ids, _ in out]),
-                torch.stack([v for _, v in out]))
+        uniforms = _table_uniforms(self.hashings, queries.shape[0],
+                                   hash_times, generator, probe_mode,
+                                   self.device)
+        return _table_probes(self.hashings, queries, hash_times, probe_mode,
+                             uniforms)
 
     def _flat_probes(self, pids, pvalid):
         """``(Lc, nq, P)`` per-table probes -> ``(nq, Lc*P)`` bucket ids of
         the flat ``Lc * NB`` bucket space."""
-        L, nq, n_probes = pids.shape
-        offs = torch.arange(L, dtype=torch.int32, device=pids.device)
-        gp = (pids.permute(1, 0, 2) + (offs * self.n_buckets)[None, :, None])
-        return (gp.reshape(nq, L * n_probes).to(torch.int32),
-                pvalid.permute(1, 0, 2).reshape(nq, L * n_probes))
+        return _flat(pids, pvalid, self.n_buckets)
 
     # -- the gather engine and the exact distinct count ------------------------
 
@@ -641,6 +878,7 @@ class MultiTableIndexer:
         static = qk.windowed_static_bound(gp.numel(), layout.cap // br + 1,
                                           layout.n_rows // br, qk.GROUP_W)
         self._g_cal = int(min(g_cal, static))
+        self._graphs.clear()  # served at the old calibration
         return self._g_cal
 
     def windowed_group_bound(self, layout: qk.ServingLayout, gp, gv):
@@ -727,13 +965,33 @@ class MultiTableIndexer:
     def query_async(self, queries, k: int = 10, hash_times: int = 1,
                     generator: torch.Generator | None = None,
                     probe_mode: str = "sample", plain: bool = False):
-        """Enqueue an ensemble query: returns ``(topk_ids, n_candidates)``
-        device tensors for :meth:`fetch`.  ``probe_mode="flip"`` probes
-        each table's ``hash_times`` best-first bit-flip buckets.
-        ``plain=True`` serves the windowed, grouped or fixed-cap engine
-        with the kernels' plain PyTorch versions."""
+        """Enqueue an ensemble query: returns a result for :meth:`fetch`.
+        ``probe_mode="flip"`` probes each table's ``hash_times`` best-first
+        bit-flip buckets.
+
+        Without a mesh the windowed and fixed-cap engines serve through
+        the fused ensemble serve (:func:`_fused_mt_serve`, one replayed
+        graph on the card; the windowed engine at :meth:`calibrate`'s
+        count, guarded, or at the static bound) and return ONE packed
+        ``[topk_ids | n_candidates]`` tensor, or a :class:`_Guarded`
+        whose need is read in the same copy as the ids.  The grouped
+        engine keeps its exact group bound read on the host, and the
+        gather engine, the mesh and ``plain=True`` (the kernels' plain
+        PyTorch versions) serve eagerly: they return ``(topk_ids,
+        n_candidates)``."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
+        if (self.mesh is None and not plain
+                and self.engine in ("windowed", "fixed")):
+            uniforms = _table_uniforms(self.hashings, queries.shape[0],
+                                       hash_times, generator, probe_mode,
+                                       self.device)
+            return _fused_mt_async(
+                self.hashings, self._serving_layout(), queries, uniforms,
+                k=k, hash_times=hash_times, engine=self.engine,
+                n_rows=self.n_rows,
+                g_override=self._g_cal if self.engine == "windowed" else None,
+                probe_mode=probe_mode, repeats=None, graphs=self._graphs)
         pids, pvalid = self._probes(queries, hash_times, generator,
                                     probe_mode)
         if self.engine == "gather":
@@ -742,9 +1000,14 @@ class MultiTableIndexer:
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
-        """``(topk_ids (nq, k), n_candidates (nq,))`` as numpy arrays."""
-        ids, n_cand = result
-        return ids.cpu().numpy(), n_cand.cpu().numpy()
+        """``(topk_ids (nq, k), n_candidates (nq,))`` as numpy arrays; a
+        packed or guarded result is ONE copy."""
+        if isinstance(result, tuple):
+            ids, n_cand = result
+            return ids.cpu().numpy(), n_cand.cpu().numpy()
+        packed = result.result(host=True) if isinstance(result, _Guarded) \
+            else result.cpu().numpy()
+        return packed[:, :-1], packed[:, -1]
 
     def query(self, queries, k: int = 10, hash_times: int = 1,
               generator: torch.Generator | None = None,
