@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
     python3 chip_smoke.py --profile  # also profile the fixed-cap and the
                                      # ensemble serve, 3 passes each, and
-                                     # 3 training steps
+                                     # the training step, eager and
+                                     # replayed
 
 Phases, one JSON line each: the device (and the ``nvidia-smi`` name and
 power limit line), the kernel build (one ``nvcc`` per source, in
@@ -114,20 +115,31 @@ each phase one line:
   differ only at ties;
 * ``train_step``: from the committed params, on the same injected
   arrays, step 1's loss and every gradient on the card within rtol 1e-4
-  of the CPU's, the first 20 steps' losses within rtol 1e-3;
+  of the CPU's, the first 20 steps' losses within rtol 1e-3; then on the
+  card the 20 steps replayed (``Trainer.run_segment``: every step a
+  replay of the captured ``StepProgram``) against the eager body's
+  (``_run_segment_eager``): two eager runs are compared first, and where
+  they agree bit for bit the replay must too;
+* ``train_fused``: the same replay-against-eager check for the single
+  table and the L=8 ensemble (8 seeded tables), then for each the
+  step's time eager and replayed, each one's device busy share
+  (``torch.profiler``), the capture's seconds and the step graph's pool;
+  the step launches no hand-written kernel;
 * ``train``: ``TripletTrainer.fit`` for 1,000 steps with an eval every
   500 (K1 from the trainer), then the full corpus indexed with the
   trained module and served at 16 flip probes, cap 512: recall@10 in
   [0.730, 0.755] and mean candidates in [4400, 4950] (the JAX package's
   fit at seeds 0 and 1 lands at 0.73949 / 4670.52 and 0.74233 / 4667.84,
-  ``train_anchor.py``), ``train_s`` and steps/s;
+  ``train_anchor.py``), ``train_s``, steps/s, each eval's seconds and,
+  of them, the seconds spent capturing its serve's graphs, and the step
+  graph's capture seconds and pool;
 * ``train_ensemble``: ``MultiTableTrainer(L=8)`` at
   ``benchmarks/mt_highrecall.py``'s configuration, 600 steps and one
   eval (K3 from the trainer), then the full corpus at 4 flip probes per
-  table on the windowed engine: recall@10 >= 0.985;
+  table on the windowed engine: recall@10 >= 0.985; the same timings;
 * ``train_cli``: ``nlsh_tpu_torch.cli.train.main`` on the synthetic
   dataset with the JSONL logger: its checkpoint loads and serves, and
-  ``--resume_from`` continues at the saved step.
+  ``--resume_from`` continues at the saved step; the same timings.
 
 Then the multi-device layer, on the one card through meshes that name it
 more than once (the entries run one after another), each phase one line:
@@ -1593,7 +1605,8 @@ def _pass_ms(fn, n: int) -> list:
 def _busy_share(fn) -> dict:
     """The device's busy share of one pass of ``fn``: device time summed
     over ``torch.profiler``'s device-side events of 3 passes, over the
-    unprofiled wall time of a pass (and over the profiled one)."""
+    unprofiled wall time of a pass (and over the profiled one); and the
+    device events of a pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1609,13 +1622,15 @@ def _busy_share(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = passes()
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type != torch.autograd.DeviceType.CPU) / 3e3
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in events) / 3e3
     if device_ms <= 0:
         return {"busy_share": None, "note": "not measured: the profile saw "
                 "no device time", "wall_ms": wall_ms}
     return {"device_ms": device_ms, "wall_ms": wall_ms,
             "profiled_wall_ms": profiled_ms,
+            "device_events": sum(e.count for e in events) / 3,
             "busy_share": device_ms / wall_ms,
             "busy_share_profiled": device_ms / profiled_ms}
 
@@ -2928,13 +2943,75 @@ def _rel_err(got, want) -> float:
                                                 1e-30))
 
 
+def _opt_tensors(state) -> list:
+    """The state's params and amsgrad moments, in one list."""
+    opt = state.opt_state
+    return [*opt.params, *opt.mu, *opt.nu, *opt.nu_max]
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    return a.step == b.step and all(
+        torch.equal(x, y) for x, y in zip(_opt_tensors(a), _opt_tensors(b)))
+
+
+def _replay_vs_eager(name: str, trainer, make_state, corpus, knn, arrays,
+                     bs: int) -> dict:
+    """``TRAIN_STEP_CHECK`` steps from ``make_state()`` twice through the
+    eager body on the card and once replayed (``run_segment``, capture
+    included): the two eager runs' losses, params and moments are
+    compared bit for bit, and where they agree the replay must agree bit
+    for bit too; where they do not (an atomic sum in a backward), the
+    replay is held to ``TRAIN_STEP_RTOL`` in the params and
+    ``TRAIN_LOSSES_RTOL`` in the losses.  Returns the replayed state, the
+    eager one and the comparison."""
+    runs = []
+    for run in (trainer._run_segment_eager, trainer._run_segment_eager,
+                trainer.run_segment):
+        state = make_state()
+        _, losses = run(state, corpus, knn, arrays, 0, TRAIN_STEP_CHECK, bs)
+        runs.append((state, losses))
+    (eager, l0), (again, l1), (graphed, l2) = runs
+    deterministic = _states_equal(again, eager) and bool(l1.equal(l0))
+    bitwise = _states_equal(graphed, eager) and bool(l2.equal(l0))
+    param_err = max(_rel_err(a, b) for a, b in zip(
+        graphed.opt_state.params, eager.opt_state.params))
+    losses_err = float(((l2 - l0).abs() / l0.abs()).max())
+    if deterministic:
+        check(bitwise, f"{name}: the replayed {TRAIN_STEP_CHECK} steps differ "
+              f"from the eager body's (params {param_err}, losses "
+              f"{losses_err})")
+    else:
+        check(param_err <= TRAIN_STEP_RTOL
+              and losses_err <= TRAIN_LOSSES_RTOL,
+              f"{name}: replay vs a non-reproducible eager body: params "
+              f"{param_err}, losses {losses_err}")
+    return graphed, eager, {"eager_deterministic": deterministic,
+                            "replay_bitwise": bitwise,
+                            "replay_param_rel_err": param_err,
+                            "replay_losses_rel_err": losses_err}
+
+
+def _step_arrays(data, n_steps: int, bs: int, n_tables=None,
+                 seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    n = data.training.shape[0]
+    shape = (n_steps * bs,) if n_tables is None else (n_steps * bs, n_tables)
+    return {"anchor": rng.integers(0, n, shape),
+            "col": rng.integers(0, 20, shape),
+            "neg": rng.integers(0, n, shape)}
+
+
 def phase_train_step(data, profile: bool = False) -> None:
     """The triplet step at the bench's width, card against CPU, from the
     committed params (``params_from_jax``) on the same injected arrays:
     step 1's loss and every gradient within ``TRAIN_STEP_RTOL`` of the
-    tensor's largest magnitude, the first 20 steps' losses within
-    ``TRAIN_LOSSES_RTOL``.  ``profile``: then 3 steps on the card under
-    ``torch.profiler`` (``train_profile``)."""
+    tensor's largest magnitude, the first 20 steps' losses (replayed on
+    the card) within ``TRAIN_LOSSES_RTOL``; then on the card the replayed
+    20 steps against the eager body's (:func:`_replay_vs_eager`).
+    ``profile``: then one eager and one replayed step under
+    ``torch.profiler`` (``train_profile``, ``train_profile_replayed``)."""
     import torch
 
     import bench
@@ -2942,11 +3019,7 @@ def phase_train_step(data, profile: bool = False) -> None:
     from nlsh_tpu_torch.train.base import device_arrays, param_leaves
 
     bs = bench.TRAIN_CFG["batch_size"]
-    n = data.training.shape[0]
-    rng = np.random.default_rng(0)
-    arrays = {"anchor": rng.integers(0, n, TRAIN_STEP_CHECK * bs),
-              "col": rng.integers(0, 20, TRAIN_STEP_CHECK * bs),
-              "neg": rng.integers(0, n, TRAIN_STEP_CHECK * bs)}
+    arrays = _step_arrays(data, TRAIN_STEP_CHECK, bs)
     trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
     out = {}
     for device in ("cpu", DEVICE):
@@ -2956,8 +3029,7 @@ def phase_train_step(data, profile: bool = False) -> None:
                               device=device)
         dev_arrays = device_arrays(arrays, device)
         batch = {k: v[:bs] for k, v in dev_arrays.items()}
-        loss = trainer.loss_fn(params, corpus, knn, batch,
-                               torch.Generator().manual_seed(0))
+        loss = trainer.loss_fn(params, corpus, knn, batch, None)
         grads = torch.autograd.grad(loss, param_leaves(params))
         state = trainer.make_state(params, bench.TRAIN_CFG["learning_rate"])
         t0 = time.perf_counter()
@@ -2965,9 +3037,19 @@ def phase_train_step(data, profile: bool = False) -> None:
                                         TRAIN_STEP_CHECK, bs)
         losses = losses.cpu()
         out[device] = (loss, grads, losses, time.perf_counter() - t0)
-        if profile and device == DEVICE:
-            _profile_passes("train_profile", lambda: trainer.run_segment(
-                state, corpus, knn, dev_arrays, 0, 1, bs), top=15)
+
+    def make_state():
+        return trainer.make_state(
+            {"hashing": load_hashing().to(DEVICE).train(), "extra": {}},
+            bench.TRAIN_CFG["learning_rate"])
+
+    graphed, eager, replay = _replay_vs_eager(
+        "train_step", trainer, make_state, corpus, knn, dev_arrays, bs)
+    if profile:
+        _profile_passes("train_profile", lambda: trainer._run_segment_eager(
+            eager, corpus, knn, dev_arrays, 0, 1, bs)[1].cpu(), top=15)
+        _profile_passes("train_profile_replayed", lambda: trainer.run_segment(
+            graphed, corpus, knn, dev_arrays, 0, 1, bs)[1].cpu(), top=15)
     (l0, g0, s0, cpu_s), (l1, g1, s1, card_s) = out["cpu"], out[DEVICE]
     loss_err = _rel_err(l1, l0)
     grad_err = max(_rel_err(a, b) for a, b in zip(g1, g0))
@@ -2979,35 +3061,147 @@ def phase_train_step(data, profile: bool = False) -> None:
     emit("train_step", batch_size=bs, steps=TRAIN_STEP_CHECK,
          step1_loss=float(l1.detach()), step1_loss_rel_err=loss_err,
          step1_grad_rel_err=grad_err, losses_rel_err=losses_err,
-         losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s)
+         losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s, **replay)
+
+
+TRAIN_FUSED_STEPS = 20   # timed steps of each of the eager and replayed runs
+TRAIN_FUSED_BUSY = 5     # steps in each pass of the busy-share profile
+
+
+def _step_numbers(trainer, eager, graphed, corpus, knn, arrays,
+                  bs: int) -> dict:
+    """The step's time eager and replayed (host ms per step over a
+    segment of ``TRAIN_FUSED_STEPS``, synchronised), each one's device
+    busy share (``_busy_share`` over passes of ``TRAIN_FUSED_BUSY``
+    steps), the capture's seconds and the graph's pool."""
+    import torch
+
+    out = {}
+    for name, state, run in (("eager", eager, trainer._run_segment_eager),
+                             ("replayed", graphed, trainer.run_segment)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, corpus, knn, arrays, TRAIN_STEP_CHECK, TRAIN_FUSED_STEPS,
+            bs)[1].cpu()
+        out[f"{name}_step_ms"] = 1e3 * (time.perf_counter() - t0) \
+            / TRAIN_FUSED_STEPS
+        share = _busy_share(lambda: run(state, corpus, knn, arrays, 0,
+                                        TRAIN_FUSED_BUSY, bs)[1].cpu())
+        out[f"{name}_busy"] = {  # per step
+            k: (v / TRAIN_FUSED_BUSY if k.endswith("_ms")
+                or k == "device_events" else v) for k, v in share.items()}
+    graph = graphed.step_program.graph
+    out.update(capture_s=graph.capture_s,
+               graph_pool_mib=graph.pool_bytes / 2 ** 20,
+               program_capacity=graphed.step_program.capacity)
+    return out
+
+
+def phase_train_fused(data) -> None:
+    """The one-dispatch step (``Trainer.run_segment``: every step a
+    replay of the captured ``StepProgram``) at the bench's training
+    configuration, for the single table (from the committed params) and
+    the L=8 ensemble (8 seeded tables): the replayed 20 steps against the
+    eager body's (:func:`_replay_vs_eager`), then the step's time eager
+    and replayed, each one's busy share, the capture's seconds and the
+    graph's pool (:func:`_step_numbers`).  The step launches no
+    hand-written kernel: every tally stays 0."""
+    import torch
+
+    import bench
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.parallel import init_multi_table
+    from nlsh_tpu_torch.train import MultiTableTrainer, TripletTrainer
+    from nlsh_tpu_torch.train.base import device_arrays
+
+    bs = bench.TRAIN_CFG["batch_size"]
+    lr = bench.TRAIN_CFG["learning_rate"]
+    corpus = torch.as_tensor(data.training, device=DEVICE)
+    knn = torch.as_tensor(data.training_self_knn.astype(np.int64),
+                          device=DEVICE)
+    n_steps = TRAIN_STEP_CHECK + TRAIN_FUSED_STEPS
+    single = TripletTrainer(_bench_head(), data, **_train_cfg())
+    ensemble = MultiTableTrainer(TripletTrainer(_bench_head(), data,
+                                                **_train_cfg()), 8)
+    cases = (
+        ("single", single, None, lambda: single.make_state(
+            {"hashing": load_hashing().to(DEVICE).train(), "extra": {}}, lr)),
+        ("ensemble", ensemble, 8, lambda: ensemble.make_state(
+            {"hashing": [h.to(DEVICE) for h in init_multi_table(
+                _bench_head(), 8, torch.Generator().manual_seed(
+                    bench.SEED))], "extra": {}}, lr)))
+    fields = {}
+    for name, trainer, n_tables, make_state in cases:
+        arrays = device_arrays(_step_arrays(data, n_steps, bs, n_tables),
+                               DEVICE)
+        reset_launches()
+        graphed, eager, replay = _replay_vs_eager(
+            f"train_fused {name}", trainer, make_state, corpus, knn, arrays,
+            bs)
+        numbers = _step_numbers(trainer, eager, graphed, corpus, knn,
+                                arrays, bs)
+        check(not any(qk.KERNEL_LAUNCHES.values()),
+              f"the training step launched a kernel: {qk.KERNEL_LAUNCHES}")
+        fields[name] = {**replay, **numbers}
+        del graphed, eager
+        torch.cuda.empty_cache()
+    emit("train_fused", card=CARD["nvidia_smi"], batch_size=bs, **fields)
+
+
+class _Captures:
+    """Every graph captured while entered (``graphs.capture``, the serves'
+    and the training step's), for its ``capture_s`` and ``pool_bytes``."""
+
+    def __enter__(self):
+        from nlsh_tpu_torch.utils import graphs
+
+        self.graphs, self._capture = [], graphs.capture
+
+        def capture(*args, **kwargs):
+            self.graphs.append(self._capture(*args, **kwargs))
+            return self.graphs[-1]
+
+        graphs.capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        from nlsh_tpu_torch.utils import graphs
+
+        graphs.capture = self._capture
 
 
 class _TimedEvals:
-    """Wraps a trainer's ``_evaluate``: the host seconds of each eval."""
+    """Wraps a trainer's ``_evaluate``: the host seconds of each eval, and
+    of them the seconds spent capturing the serve's graphs (each eval's
+    new ``Indexer`` captures its own)."""
 
-    def __init__(self, trainer):
-        self.seconds = []
-        self._evaluate = trainer._evaluate
-        trainer._evaluate = self
+    def __init__(self, evaluate):
+        self.seconds, self.capture_s, self.graphs = [], [], []
+        self._evaluate = evaluate
 
     def __call__(self, *args, **kwargs):
         import torch
 
         t0 = time.perf_counter()
-        out = self._evaluate(*args, **kwargs)
+        with _Captures() as captured:
+            out = self._evaluate(*args, **kwargs)
         torch.cuda.synchronize()
         self.seconds.append(time.perf_counter() - t0)
+        self.capture_s.append(sum(g.capture_s for g in captured.graphs))
+        self.graphs += captured.graphs
         return out
 
 
 def _fit_logged(trainer, log_path: str, **fit_kw):
     """``trainer.fit`` on the card, timed, with its evals timed; returns
-    the state, train_s, the evals' seconds and the logged metrics."""
+    the state, train_s, the evals' and the captures' numbers and the
+    logged metrics."""
     import torch
 
-    evals = _TimedEvals(trainer)
+    evals = trainer._evaluate = _TimedEvals(trainer._evaluate)
     t0 = time.perf_counter()
-    state = trainer.fit(device=DEVICE, **fit_kw)
+    with _Captures() as captured:
+        state = trainer.fit(device=DEVICE, **fit_kw)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     trainer.logger.close()
@@ -3018,7 +3212,18 @@ def _fit_logged(trainer, log_path: str, **fit_kw):
             if r["kind"] == "metric" and r["name"] != "training/loss":
                 metrics.setdefault(r["name"], []).append([r["step"],
                                                           r["value"]])
-    return state, train_s, evals.seconds, metrics
+    return state, train_s, _fit_timing(evals, captured), metrics
+
+
+def _fit_timing(evals: _TimedEvals, captured: _Captures) -> dict:
+    """A fit's evals' seconds and capture seconds, and its step graphs'
+    (the graphs it captured outside its evals) capture seconds and
+    pools."""
+    steps = [g for g in captured.graphs
+             if not any(g is e for e in evals.graphs)]
+    return {"eval_s": evals.seconds, "eval_capture_s": evals.capture_s,
+            "step_capture_s": [g.capture_s for g in steps],
+            "step_graph_pool_mib": [g.pool_bytes / 2 ** 20 for g in steps]}
 
 
 def phase_train(data, corpus: np.ndarray, queries: np.ndarray,
@@ -3041,14 +3246,17 @@ def phase_train(data, corpus: np.ndarray, queries: np.ndarray,
     trainer = TripletTrainer(_bench_head(), data, os.path.join(tmp, "train"),
                              logger=JSONLLogger(log, "train"), **_train_cfg())
     reset_launches()
-    state, train_s, eval_s, metrics = _fit_logged(
+    state, train_s, timing, metrics = _fit_logged(
         trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
         learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=100,
         test_every_updates=TRAIN_EVERY, max_steps=bench.TRAIN_STEPS,
         hash_times=HASH_TIMES, seed=bench.SEED)
     launches = read_launches("grouped_scores_topk")
-    check(state.step == bench.TRAIN_STEPS and len(eval_s) == 2,
-          f"{state.step} steps, {len(eval_s)} evals")
+    eval_s = timing["eval_s"]
+    check(state.step == bench.TRAIN_STEPS and len(eval_s) == 2
+          and len(timing["step_capture_s"]) == 1,
+          f"{state.step} steps, {len(eval_s)} evals, "
+          f"{len(timing['step_capture_s'])} step captures")
 
     idx = Indexer(state.params["hashing"], corpus, device=DEVICE,
                   metric="cosine", probe_budget=CAP)
@@ -3062,7 +3270,7 @@ def phase_train(data, corpus: np.ndarray, queries: np.ndarray,
           f"trained mean n_candidates {mean_cand} outside "
           f"{TRAIN_N_CAND_RANGE}")
     step_s = train_s - sum(eval_s)
-    emit("train", steps=state.step, train_s=train_s, eval_s=eval_s,
+    emit("train", steps=state.step, train_s=train_s, **timing,
          steps_per_s=state.step / step_s, step_ms=1e3 * step_s / state.step,
          launches=launches, eval_metrics=metrics, recall_at_10=recall,
          mean_n_candidates=mean_cand, max_bucket=idx.table.max_count(),
@@ -3093,14 +3301,17 @@ def phase_train_ensemble(data, corpus: np.ndarray, queries: np.ndarray,
                            logger=JSONLLogger(log, "ensemble"), **_train_cfg())
     trainer = MultiTableTrainer(inner, 8)
     reset_launches()
-    state, train_s, eval_s, metrics = _fit_logged(
+    state, train_s, timing, metrics = _fit_logged(
         trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
         learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=1000,
         test_every_updates=ENSEMBLE_TRAIN_STEPS,
         max_steps=ENSEMBLE_TRAIN_STEPS, hash_times=HASH_TIMES, seed=bench.SEED)
     launches = read_launches("windowed_scores_topk")
-    check(state.step == ENSEMBLE_TRAIN_STEPS and len(eval_s) == 1,
-          f"{state.step} steps, {len(eval_s)} evals")
+    eval_s = timing["eval_s"]
+    check(state.step == ENSEMBLE_TRAIN_STEPS and len(eval_s) == 1
+          and len(timing["step_capture_s"]) == 1,
+          f"{state.step} steps, {len(eval_s)} evals, "
+          f"{len(timing['step_capture_s'])} step captures")
 
     midx = MultiTableIndexer(state.params["hashing"], corpus, device=DEVICE,
                              metric="cosine")
@@ -3113,7 +3324,7 @@ def phase_train_ensemble(data, corpus: np.ndarray, queries: np.ndarray,
           f"trained ensemble recall@10 {recall} < {ENSEMBLE_RECALL_MIN}")
     step_s = train_s - sum(eval_s)
     emit("train_ensemble", n_tables=8, steps=state.step, train_s=train_s,
-         eval_s=eval_s, steps_per_s=state.step / step_s,
+         **timing, steps_per_s=state.step / step_s,
          step_ms=1e3 * step_s / state.step, launches=launches,
          eval_metrics=metrics, engine=midx.engine, recall_at_10=recall,
          mean_n_candidates=float(n_cand.mean()), mean_exact_query_size=size,
@@ -3136,6 +3347,7 @@ def phase_train_cli(tmp: str) -> dict:
     from nlsh_tpu_torch.cli import train as cli
     from nlsh_tpu_torch.data import SyntheticDataset
     from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.train.base import Trainer
     from nlsh_tpu_torch.utils.checkpoint import load_model
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
@@ -3148,10 +3360,17 @@ def phase_train_cli(tmp: str) -> dict:
           "the training CLI defaults to the card")
     reset_launches()
     printed = io.StringIO()
+    evaluate = Trainer._evaluate
+    evals = _TimedEvals(evaluate)
+    Trainer._evaluate = lambda self, *args, **kw: evals(self, *args, **kw)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
-        state = cli.main(common + ["--logger_type", "jsonl", "--max_steps",
-                                   "64", "--model_save_dir", save_dir])
+    try:
+        with contextlib.redirect_stdout(printed), _Captures() as captured:
+            state = cli.main(common + ["--logger_type", "jsonl",
+                                       "--max_steps", "64",
+                                       "--model_save_dir", save_dir])
+    finally:
+        Trainer._evaluate = evaluate
     train_s = time.perf_counter() - t0
     saved = sorted((f for f in os.listdir(save_dir) if f.endswith(".state")),
                    key=lambda f: int(f.split("_")[-2]))
@@ -3182,7 +3401,8 @@ def phase_train_cli(tmp: str) -> dict:
           f"resumed at {saved_step}: {resumed.step} steps")
     launches = read_launches("grouped_scores_topk")
     emit("train_cli", steps=state.step, train_s=train_s,
-         checkpoints=saved, resumed_from=saved_step, resumed_to=resumed.step,
+         **_fit_timing(evals, captured), checkpoints=saved,
+         resumed_from=saved_step, resumed_to=resumed.step,
          serve_recall_at_10=recall, serve_mean_n_candidates=float(
              n_cand.mean()), launches=launches)
     return launches
@@ -3765,7 +3985,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile 3 fixed-cap and 3 ensemble serve "
-                             "passes, and 3 training steps")
+                             "passes, and the training step (3 passes of "
+                             "one step), eager and replayed")
     args = parser.parse_args()
     import bench  # fails, before any output, outside a checkout of the repo
     import nlsh_tpu_torch  # noqa: F401
@@ -3852,6 +4073,7 @@ def main() -> int:
                                 sub_knn, "cosine")
         phase_train_knn(data.training, sub_knn)
         phase_train_step(data, args.profile)
+        phase_train_fused(data)
         new_callers["train"] = phase_train(data, corpus, queries, gt, tmp)
         new_callers["train_ensemble"] = phase_train_ensemble(
             data, corpus, queries, gt, tmp)

@@ -18,7 +18,7 @@ import copy
 import torch
 
 from nlsh_tpu_torch.parallel.mesh import Mesh, pmean
-from nlsh_tpu_torch.train.base import extra_to, param_leaves
+from nlsh_tpu_torch.train.base import extra_to, host_to, param_leaves
 
 
 def _replica(params: dict, dev) -> dict:
@@ -46,8 +46,9 @@ class DPSegmentRunner:
     With D global entries, entry ``d`` owns rows ``[d * n / D, (d + 1) *
     n / D)`` of every epoch array (``n`` its length, trimmed by the
     trainer to whole batches), and step ``s`` takes the rows ``[s * B /
-    D, (s + 1) * B / D)`` of that block (``B = batch_size``), with a CPU
-    generator seeded :func:`entry_seed` ``(step_seed + s, d, D)``.  The
+    D, (s + 1) * B / D)`` of that block (``B = batch_size``), with the
+    draws (:meth:`Trainer.step_draws`) of a CPU generator seeded
+    :func:`entry_seed` ``(step_seed + s, d, D)``.  The
     corpus and the kNN table are replicated.  ``batch_size`` must divide
     by D."""
 
@@ -89,7 +90,10 @@ class DPSegmentRunner:
                      for name, arr in block.items()}
             gen = torch.Generator().manual_seed(
                 entry_seed(step_seed + s, g, self.n_dev))
-            loss = self.trainer.loss_fn(params, corpus, knn, batch, gen)
+            draws = self.trainer.step_draws(gen, corpus.shape[0])
+            batch.update({name: host_to(d, corpus.device)
+                          for name, d in draws.items()})
+            loss = self.trainer.loss_fn(params, corpus, knn, batch, None)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             flat_grads.append(torch.cat([
                 (torch.zeros_like(p) if gr is None else gr).reshape(-1)

@@ -1,20 +1,27 @@
 """Trainer harness: the template-method training loop.
 
 Port of :mod:`nlsh_tpu.train.base`.  The JAX package scans whole
-segments of steps inside one compiled program; here a segment is a
-Python loop of eager steps on the device, with the losses kept on the
-device and read once per segment.  Per-epoch batch composition
-(shuffles, positive and negative draws) is a dict of index arrays from
-each learner's :meth:`Trainer.epoch_arrays`, sliced per step.
+segments of steps inside one compiled program, so the host steps in only
+at evaluation boundaries.  Here the step is one body over device inputs
+(:class:`StepProgram`), captured on the card as a CUDA graph and
+replayed once per step: the host builds a segment's inputs, replays,
+reads the losses once per segment and evaluates.  Per-epoch batch
+composition (shuffles, positive and negative draws) is a dict of index
+arrays from each learner's :meth:`Trainer.epoch_arrays`, gathered per
+step on the device.
 
 Template contract (the JAX package's):
 
 * ``epoch_arrays(generator, params)``: per-epoch index/label arrays, each
   ``(n, ...)``, sliced ``batch_size`` rows per step;
+* ``step_draws(generator, n_rows)``: a step's own random draws (the
+  proposed learner's regulariser rows) from the step's CPU
+  ``torch.Generator``, the JAX package's per-step key; taken before the
+  segment and put into the step's batch;
 * ``loss_fn(params, corpus, knn, batch, generator)``: the scalar loss of
-  one batch; ``params`` is ``{"hashing": module, "extra": dict}`` and
-  ``generator`` is the step's own CPU ``torch.Generator`` (the JAX
-  package's per-step key);
+  one batch and its draws; ``params`` is ``{"hashing": module, "extra":
+  dict}``; the step passes ``generator=None``, since a captured step
+  would replay one draw forever;
 * ``init_extra(generator)`` (auxiliary params, e.g. the AE decoder, as a
   nested dict of tensors in the JAX layout) and
   ``init_hashing_params(generator)``.
@@ -26,9 +33,12 @@ whenever the second moment shrinks.  Learning-rate schedules are optax's
 formulas as functions of the update count (:func:`_make_lr`).
 
 Everything random (init, epoch arrays, the train-probe set, the per-step
-generators' seeds) comes from one CPU ``torch.Generator`` seeded by
-``seed`` and is moved to the device afterwards, so one seed gives the
-same batches on the card and on the CPU.
+generators' seeds and draws) comes from one CPU ``torch.Generator``
+seeded by ``seed`` and is moved to the device afterwards, so one seed
+gives the same batches on the card and on the CPU.  The optimiser's
+per-step scalars (the learning rate, the bias corrections) are a table
+built on the host per segment (:meth:`Amsgrad.step_table`), so the
+captured step reads each step's own.
 
 Evaluation every ``test_every_updates`` steps builds an
 :class:`~nlsh_tpu_torch.index.indexer.Indexer` over the live module (the
@@ -43,6 +53,7 @@ file in the JAX package's format.
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -55,6 +66,7 @@ from torch import nn
 
 from nlsh_tpu_torch.index.indexer import Indexer
 from nlsh_tpu_torch.utils import checkpoint as ckpt
+from nlsh_tpu_torch.utils import graphs
 from nlsh_tpu_torch.utils.loggers import NullLogger
 from nlsh_tpu_torch.utils.metrics import calculate_recall
 
@@ -154,43 +166,70 @@ class Amsgrad:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.nu_max = [torch.zeros_like(p) for p in self.params]
 
+    def step_table(self, n: int) -> np.ndarray:
+        """The next ``n`` updates' scalars, ``(n, 3)`` float32: per update
+        ``(lr, 1 - b1**t, 1 - b2**t)``, optax's float32 arithmetic at
+        counts ``t = count + 1, ...`` (and schedule counts
+        ``schedule_count, ...``).  Leaves the counts alone."""
+        table = np.empty((n, 3), np.float32)
+        for j in range(n):
+            t = _F32(self.count + 1 + j)
+            table[j, 1] = _F32(1) - _F32(self.b1) ** t
+            table[j, 2] = _F32(1) - _F32(self.b2) ** t
+            table[j, 0] = self.learning_rate if self.schedule_count is None \
+                else self.learning_rate(self.schedule_count + j)
+        return table
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` updates made by :meth:`apply`."""
+        self.count += n
+        if self.schedule_count is not None:
+            self.schedule_count += n
+
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor]) -> None:
-        """One optimiser step on ``self.params`` in place."""
-        self.count += 1
-        t = _F32(self.count)
-        # optax's bias corrections, in float32
-        bc1 = _F32(1) - _F32(self.b1) ** t
-        bc2 = _F32(1) - _F32(self.b2) ** t
-        if self.schedule_count is None:
-            lr = self.learning_rate
-        else:
-            lr = float(self.learning_rate(self.schedule_count))
-            self.schedule_count += 1
+    def apply(self, grads: list[torch.Tensor], lr: torch.Tensor,
+              c1: torch.Tensor, c2: torch.Tensor) -> None:
+        """One optimiser step on ``self.params`` in place from 0-d float32
+        tensors on their device: the learning rate and the two bias
+        corrections (a row of :meth:`step_table`).  Reads nothing on the
+        host and leaves the counts alone, so a captured graph replays it
+        at each step's own row; a Python divisor would also become a
+        reciprocal product on the card."""
         b1, b2 = self.b1, self.b2
-        # filled on the device: a host tensor copied in would wait for
-        # the stream, and a Python divisor becomes a reciprocal product
-        device = self.params[0].device
-        c1 = torch.full((), float(bc1), dtype=torch.float32, device=device)
-        c2 = torch.full((), float(bc2), dtype=torch.float32, device=device)
+        neg_lr = -lr
         for p, g, mu, nu, nu_max in zip(self.params, grads, self.mu, self.nu,
                                         self.nu_max):
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             nu_max.copy_(torch.maximum(nu_max, nu / c2))
             upd = (mu / c1) / (torch.sqrt(nu_max) + self.eps)
-            p.add_(upd * -lr)
+            p.add_(upd * neg_lr)
+
+    def update(self, grads: list[torch.Tensor]) -> None:
+        """One optimiser step on ``self.params`` in place, counted."""
+        device = self.params[0].device
+        # filled on the device: a host tensor copied in would wait for
+        # the stream
+        self.apply(grads, *(torch.full((), float(v), dtype=torch.float32,
+                                       device=device)
+                            for v in self.step_table(1)[0]))
+        self.advance(1)
 
 
 @dataclasses.dataclass
 class TrainState:
     """``params`` is ``{"hashing": module (or a list of modules, one per
     table), "extra": nested dict of tensors}``, ``opt_state`` the
-    :class:`Amsgrad` over them, ``step`` the updates made."""
+    :class:`Amsgrad` over them, ``step`` the updates made.
+    ``step_program`` is the captured step of :meth:`Trainer.run_segment`
+    on the card (a :class:`StepProgram`), which reads these params and
+    moments by address; ``fit`` drops it when it returns."""
 
     params: dict
     opt_state: Amsgrad
     step: int = 0
+    step_program: Any = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:
@@ -210,6 +249,44 @@ def param_leaves(params: dict) -> list[torch.Tensor]:
 
     walk(params["extra"])
     return leaves
+
+
+@contextlib.contextmanager
+def fresh_leaves(params: dict):
+    """``params`` with each trained tensor replaced, while entered, by a
+    new leaf over the same storage: the modules' parameters are swapped
+    in place (and put back on exit), the extra params' dict is copied.
+    Yields the swapped ``params``; its :func:`param_leaves` are the new
+    leaves, in the originals' order.
+
+    Autograd's accumulator of a leaf remembers the stream it was made on,
+    and lives as long as any graph through the leaf: a loss the caller
+    still holds keeps one of the default stream alive, and a backward on
+    a capture's stream would then wait on the default stream, which the
+    capture refuses.  A new leaf gets its accumulator on the step's own
+    stream.  Updating the originals in place updates the new leaves,
+    which alias them."""
+    h = params["hashing"]
+    new, swapped = {}, []
+    for module in (h if isinstance(h, (list, tuple)) else [h]):
+        for sub in module.modules():
+            for name, p in list(sub._parameters.items()):
+                if p is not None:
+                    if id(p) not in new:
+                        new[id(p)] = nn.Parameter(p.detach(), p.requires_grad)
+                    swapped.append((sub, name, p))
+                    sub._parameters[name] = new[id(p)]
+
+    def walk(extra: dict) -> dict:
+        return {key: walk(v) if isinstance(v, dict) else
+                v.detach().requires_grad_(v.requires_grad)
+                for key, v in extra.items()}
+
+    try:
+        yield {"hashing": h, "extra": walk(params["extra"])}
+    finally:
+        for sub, name, p in swapped:
+            sub._parameters[name] = p
 
 
 def extra_to(extra: dict, device) -> dict:
@@ -232,6 +309,119 @@ def device_arrays(arrays: dict, device) -> dict:
 
 def _corpus_tensor(data, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(data.training, np.float32), device=device)
+
+
+def host_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``; to the card through pinned memory, so
+    the copy does not wait for the stream."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class StepProgram:
+    """The optimiser step as one body over static inputs, the counterpart
+    of the scan body of the JAX package's segment runner; on the card it
+    is captured once (:func:`nlsh_tpu_torch.utils.graphs.capture`, with
+    autograd on) and replayed once per step.
+
+    The static inputs hold one chunk of at most ``capacity`` steps of a
+    segment: the chunk's rows of every epoch array, its rows of the
+    per-step draws (:meth:`Trainer.step_draws`) and of the optimiser's
+    scalars (:meth:`Amsgrad.step_table`), and ``i``, the chunk-local step
+    (a device int64 scalar).  The body gathers step ``i``'s batch rows,
+    computes the loss and its gradients, applies the update in place,
+    writes the loss into row ``i`` of ``losses`` and adds one to ``i``: it
+    reads nothing on the host, so every replay is the next step.  The
+    graph reads the params, the moments, the corpus and the kNN table by
+    address, and the program holds them."""
+
+    def __init__(self, trainer: "Trainer", state: TrainState,
+                 corpus: torch.Tensor, knn: torch.Tensor, arrays: dict,
+                 draws: dict, batch_size: int, capacity: int):
+        self.key = _program_key(trainer, state, corpus, knn, arrays, draws,
+                                batch_size)
+        self.trainer, self.params, self.opt = trainer, state.params, \
+            state.opt_state
+        self.corpus, self.knn = corpus, knn
+        self.batch_size, self.capacity = batch_size, capacity
+        device = corpus.device
+        self.i = torch.zeros((), dtype=torch.int64, device=device)
+        self.offsets = torch.arange(batch_size, device=device)
+        self.arrays = {name: a.new_empty((capacity * batch_size,
+                                          *a.shape[1:]))
+                       for name, a in arrays.items()}
+        self.draws = {name: torch.empty((capacity, *d.shape[1:]),
+                                        dtype=d.dtype, device=device)
+                      for name, d in draws.items()}
+        self.table = torch.empty((capacity, 3), dtype=torch.float32,
+                                 device=device)
+        self.losses = torch.empty(capacity, dtype=torch.float32,
+                                  device=device)
+        self.graph = None
+
+    def step(self) -> None:
+        """The body: one optimiser step at the chunk's step ``i``."""
+        at = self.i.view(1)
+        rows = self.i * self.batch_size + self.offsets
+        batch = {name: a.index_select(0, rows)
+                 for name, a in self.arrays.items()}
+        batch.update({name: d.index_select(0, at)[0]
+                      for name, d in self.draws.items()})
+        with fresh_leaves(self.params) as params:
+            loss = self.trainer.loss_fn(params, self.corpus, self.knn, batch,
+                                        None)
+            leaves = param_leaves(params)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        row = self.table.index_select(0, at)[0]
+        self.opt.apply([torch.zeros_like(p) if g is None else g
+                        for p, g in zip(leaves, grads)],
+                       row[0], row[1], row[2])
+        self.losses.index_copy_(0, at, loss.detach().view(1))
+        self.i.add_(1)
+
+    def run(self, arrays: dict, draws: dict, table: torch.Tensor,
+            first_step: int, n: int, graphed: bool) -> torch.Tensor:
+        """``n <= capacity`` steps from the epoch step ``first_step``
+        (``draws`` and ``table``: the chunk's rows, on the device):
+        replays of the graph where ``graphed`` (the first one captured
+        after its warm-up, which is the chunk's first step), else the
+        body run eagerly; returns the ``(n,)`` losses."""
+        bs = self.batch_size
+        with torch.no_grad():
+            for name, a in self.arrays.items():
+                a[:n * bs].copy_(arrays[name][first_step * bs:
+                                              (first_step + n) * bs])
+            for name, d in self.draws.items():
+                d[:n].copy_(draws[name])
+            self.table[:n].copy_(table)
+            self.i.zero_()
+        done = 0
+        if graphed and self.graph is None:
+            self.graph = graphs.capture(self.step, (), self.corpus.device,
+                                        grad=True)
+            done = 1
+        with torch.enable_grad():
+            for _ in range(done, n):
+                if graphed:
+                    self.graph.replay()
+                else:
+                    self.step()
+        return self.losses[:n].clone()
+
+
+def _program_key(trainer, state, corpus, knn, arrays, draws,
+                 batch_size) -> tuple:
+    """What a :class:`StepProgram` is built for: a program is replayed
+    only for the same trainer, state, corpus and kNN (by address) and
+    the same batch size, array and draw shapes."""
+    return (id(trainer), id(state.params), id(state.opt_state),
+            corpus.device, corpus.data_ptr(), tuple(corpus.shape),
+            knn.data_ptr(), tuple(knn.shape), batch_size,
+            tuple((name, a.dtype, tuple(a.shape[1:]))
+                  for name, a in arrays.items()),
+            tuple((name, d.dtype, tuple(d.shape[1:]))
+                  for name, d in draws.items()))
 
 
 class Trainer(abc.ABC):
@@ -276,31 +466,76 @@ class Trainer(abc.ABC):
         ckpt.save_model(base, state.params["hashing"])
         ckpt.save_train_state(base + ".state", state)
 
+    def step_draws(self, generator: torch.Generator,
+                   n_rows: int) -> dict[str, torch.Tensor]:
+        """The random draws of one step, taken from the step's own CPU
+        generator before the segment and handed to :meth:`loss_fn` in
+        its batch (``n_rows``: the corpus's); none by default."""
+        return {}
+
     # -- the steps ------------------------------------------------------------
+    def segment_draws(self, step_seed: int, seg_start: int, n_steps: int,
+                      n_rows: int) -> dict[str, torch.Tensor]:
+        """Every step's :meth:`step_draws`, stacked ``(n_steps, ...)`` on
+        the CPU: step ``s`` draws from a generator seeded ``step_seed +
+        s``, in step order, as a loop of eager steps would."""
+        per_step = [self.step_draws(torch.Generator().manual_seed(
+            step_seed + s), n_rows) for s in range(seg_start,
+                                                   seg_start + n_steps)]
+        return {name: torch.stack([d[name] for d in per_step])
+                for name in per_step[0]}
+
     def run_segment(self, state: TrainState, corpus: torch.Tensor,
                     knn: torch.Tensor, arrays: dict, seg_start: int,
                     n_steps: int, batch_size: int, step_seed: int = 0):
         """``n_steps`` optimiser steps on the epoch's steps ``seg_start,
         seg_start + 1, ...``: step ``s`` takes rows ``[s * batch_size,
-        (s + 1) * batch_size)`` of every array in ``arrays`` and a CPU
-        generator seeded ``step_seed + s`` (the epoch step, not the
-        segment-local one, so the segments of one epoch never replay each
-        other's draws).  Updates ``state`` in place; returns it and the
-        ``(n_steps,)`` losses, on the device."""
-        leaves = state.opt_state.params
+        (s + 1) * batch_size)`` of every array in ``arrays`` and the
+        draws of a CPU generator seeded ``step_seed + s`` (the epoch
+        step, not the segment-local one, so the segments of one epoch
+        never replay each other's draws).  Updates ``state`` in place;
+        returns it and the ``(n_steps,)`` losses, on the device.
+
+        On the card every step is a replay of the state's captured
+        :class:`StepProgram` (captured at its first segment, whose first
+        step is the capture's warm-up); a segment longer than the
+        program's capacity, the first segment's length, runs as chunks
+        of it.  CPU tensors run the same body eagerly."""
+        return self._segment(state, corpus, knn, arrays, seg_start, n_steps,
+                             batch_size, step_seed, corpus.is_cuda)
+
+    def _run_segment_eager(self, state, corpus, knn, arrays, seg_start,
+                           n_steps, batch_size, step_seed=0):
+        """:meth:`run_segment` with the body run eagerly on any device:
+        the reference the card's replays are held to."""
+        return self._segment(state, corpus, knn, arrays, seg_start, n_steps,
+                             batch_size, step_seed, False)
+
+    def _segment(self, state, corpus, knn, arrays, seg_start, n_steps,
+                 batch_size, step_seed, graphed: bool):
+        device = corpus.device
+        draws = {name: host_to(d, device) for name, d in self.segment_draws(
+            step_seed, seg_start, n_steps, corpus.shape[0]).items()}
+        table = host_to(torch.from_numpy(state.opt_state.step_table(n_steps)),
+                        device)
+        program = state.step_program
+        if not graphed:
+            program = StepProgram(self, state, corpus, knn, arrays, draws,
+                                  batch_size, n_steps)
+        elif program is None or program.key != _program_key(
+                self, state, corpus, knn, arrays, draws, batch_size):
+            state.step_program = None  # the old graph's pool goes first
+            program = state.step_program = StepProgram(
+                self, state, corpus, knn, arrays, draws, batch_size, n_steps)
         losses = []
-        for i in range(n_steps):
-            s = seg_start + i
-            batch = {name: arr[s * batch_size:(s + 1) * batch_size]
-                     for name, arr in arrays.items()}
-            gen = torch.Generator().manual_seed(step_seed + s)
-            loss = self.loss_fn(state.params, corpus, knn, batch, gen)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            state.opt_state.update([torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(leaves, grads)])
-            state.step += 1
-            losses.append(loss.detach())
-        return state, torch.stack(losses)
+        for j in range(0, n_steps, program.capacity):
+            n = min(program.capacity, n_steps - j)
+            losses.append(program.run(
+                arrays, {name: d[j:j + n] for name, d in draws.items()},
+                table[j:j + n], seg_start + j, n, graphed))
+        state.opt_state.advance(n_steps)
+        state.step += n_steps
+        return state, torch.cat(losses)
 
     # -- evaluation -------------------------------------------------------------
     def _evaluate(self, params, corpus, val, ground_truth, probe_train,
@@ -445,4 +680,5 @@ class Trainer(abc.ABC):
                         self.save_checkpoint(state, recall)
             if stop:
                 break
+        state.step_program = None  # the step's graph, and its pool
         return state

@@ -4,8 +4,9 @@
 Wraps an extra-model-free learner (triplet / siamese / proposed):
 ``n_tables`` hashings of one architecture, one module per table, each
 drawing its own batch composition so the ensemble decorrelates.  A step
-sums the per-table losses (a loop over the tables) and updates every
-table.  Evaluation builds a
+sums the per-table losses (a loop over the tables, all in the one
+captured step on the card, the counterpart of the JAX package's
+``vmap``) and updates every table.  Evaluation builds a
 :class:`~nlsh_tpu_torch.parallel.multitable.MultiTableIndexer` (the
 windowed engine, kernel K3 on the card) and logs the single-table
 channels, ``test/query_size`` being the exact distinct-candidate count.
@@ -56,14 +57,22 @@ class MultiTableTrainer(Trainer):
         return {name: torch.stack([a[name] for a in per_table], dim=1)
                 for name in per_table[0]}
 
-    def loss_fn(self, params, corpus, knn, batch, generator):
+    def step_draws(self, generator, n_rows):
+        """Each table's draws from a generator of its own, seeded from the
+        step's, stacked on axis 1 as the epoch arrays are."""
         seeds = torch.randint(0, 2 ** 62, (self.n_tables,),
                               generator=generator).tolist()
+        per_table = [self.inner.step_draws(torch.Generator().manual_seed(seed),
+                                           n_rows) for seed in seeds]
+        return {name: torch.stack([d[name] for d in per_table], dim=1)
+                for name in per_table[0]}
+
+    def loss_fn(self, params, corpus, knn, batch, generator):
         losses = [
             self.inner.loss_fn(self._table(params, t), corpus, knn,
                                {name: arr[:, t] for name, arr in batch.items()},
-                               torch.Generator().manual_seed(seed))
-            for t, seed in enumerate(seeds)]
+                               generator)
+            for t in range(self.n_tables)]
         return torch.sum(torch.stack(losses))
 
     # -- ensemble evaluation and checkpoints -----------------------------------

@@ -3,10 +3,10 @@
 
 Loss = the mean code distance from each anchor to each of its top-k
 ground-truth neighbours, plus ``lambda1`` times a query-size
-regulariser: of ``n_reg_samples`` corpus rows drawn per step, every row
-whose hard bucket no anchor of the batch probes adds its least confident
-bit's ``|p - 0.5|``.  Bucket membership is a dense comparison of packed
-codes on the device.
+regulariser: of ``n_reg_samples`` corpus rows drawn per step (the step's
+``reg`` draws, taken before the segment), every row whose hard bucket no
+anchor of the batch probes adds its least confident bit's ``|p - 0.5|``.
+Bucket membership is a dense comparison of packed codes on the device.
 """
 
 from __future__ import annotations
@@ -41,6 +41,9 @@ class ProposedTrainer(Trainer):
         ``[0, n)``, drawn on the CPU."""
         return torch.randint(0, n, (self.n_reg_samples,), generator=generator)
 
+    def step_draws(self, generator, n_rows):
+        return {"reg": self._reg_samples(n_rows, generator).to(torch.int64)}
+
     def loss_fn(self, params, corpus, knn, batch, generator):
         hashing = params["hashing"]
         anchor_idx = batch["anchor"]
@@ -54,12 +57,7 @@ class ProposedTrainer(Trainer):
         positive_loss = torch.mean(hashing.code_distance.row_pairwise(
             hashed_anchor[:, None, :], hashed_pos)[:, 0, :])
 
-        samp_idx = self._reg_samples(corpus.shape[0], generator).to(
-            torch.int64)
-        if corpus.is_cuda:  # a pageable copy would wait for the stream
-            samp_idx = samp_idx.pin_memory()
-        samp_idx = samp_idx.to(corpus.device, non_blocking=True)
-        hashed_cand = hashing.predict(corpus[samp_idx])
+        hashed_cand = hashing.predict(corpus[batch["reg"]])
         query_codes = pack_bits((hashed_anchor.detach() > 0.5).to(torch.int32))
         cand_codes = pack_bits((hashed_cand.detach() > 0.5).to(torch.int32))
         in_probed = torch.any(cand_codes[:, None] == query_codes[None, :], dim=1)

@@ -1,10 +1,14 @@
-"""Captured CUDA graphs: the port's one-dispatch serve.
+"""Captured CUDA graphs: the port's one-dispatch serve and training step.
 
 The JAX package compiles a serve (hash, probe, score, merge, pack) into
 one program with ``jax.jit`` and dispatches it once per batch
-(``_fused_serve`` and its kin).  PyTorch's counterpart of "one compiled
-program, one dispatch" is a CUDA graph captured once and replayed:
-:class:`GraphCache` plays the role of ``jit``'s cache.
+(``_fused_serve`` and its kin), and scans a whole segment of optimiser
+steps inside one program (``Trainer._build_segment_runner``).  PyTorch's
+counterpart of "one compiled program, one dispatch" is a CUDA graph
+captured once and replayed.  :func:`capture` is the one capture helper:
+:class:`GraphCache` plays the role of ``jit``'s cache for the serves,
+and the training step (:mod:`nlsh_tpu_torch.train.base`) captures its
+body with autograd on and replays it once per step.
 
 * :meth:`GraphCache.run` takes a key (everything ``jit`` would make
   static: the module, the layout object, ``k``, the probe count and
@@ -32,10 +36,14 @@ program, one dispatch" is a CUDA graph captured once and replayed:
   them, which a replay does not.  The capture's counts are taken off the
   tallies (the capture ran nothing) and every replay adds them, so
   ``query_kernel.KERNEL_LAUNCHES`` counts what the card ran.
+* The warm-up is a real run of the body on the tensors it is given: a
+  serve runs it on its static copies and drops the result; the training
+  step runs it on its own inputs, so it is the segment's first step.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Callable
 
@@ -46,17 +54,29 @@ from nlsh_tpu_torch.ops.cuda.query_kernel import KERNEL_LAUNCHES
 MAX_GRAPHS = 16  # entries a cache keeps, the most recently used
 
 
-class _Entry:
-    __slots__ = ("graph", "inputs", "outputs", "launches", "pool_bytes",
-                 "holds")
+class Graph:
+    """A captured graph over its static inputs and outputs, with the
+    kernel launches a replay makes, its memory pool's bytes and the host
+    seconds its warm-up and capture took."""
 
-    def __init__(self, graph, inputs, outputs, launches, pool_bytes, holds):
+    __slots__ = ("graph", "inputs", "outputs", "launches", "pool_bytes",
+                 "holds", "capture_s")
+
+    def __init__(self, graph, inputs, outputs, launches, pool_bytes, holds,
+                 capture_s):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
         self.pool_bytes = pool_bytes
         self.holds = holds
+        self.capture_s = capture_s
+
+    def replay(self) -> None:
+        """One replay on the current stream, its launches counted."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            KERNEL_LAUNCHES[name] += n
 
 
 def _signature(inputs) -> tuple:
@@ -96,7 +116,10 @@ class GraphCache:
         full_key = (key, device, _signature(inputs))
         entry = self._entries.get(full_key)
         if entry is None:
-            entry = _capture(body, inputs, device, holds)
+            with torch.cuda.device(device):
+                static = tuple(None if t is None else t.detach().clone()
+                               for t in inputs)
+            entry = capture(body, static, device, holds)
             self._entries[full_key] = entry
             while len(self._entries) > MAX_GRAPHS:
                 self._entries.popitem(last=False)
@@ -106,20 +129,20 @@ class GraphCache:
             for static, t in zip(entry.inputs, inputs):
                 if static is not None:
                     static.copy_(t)
-            entry.graph.replay()
+            entry.replay()
             out = tuple(o.clone() for o in entry.outputs)
-        for name, n in entry.launches.items():
-            KERNEL_LAUNCHES[name] += n
         return out if len(out) > 1 else out[0]
 
 
-def _capture(body: Callable, inputs: tuple, device: torch.device,
-             holds: tuple) -> _Entry:
-    """Warm up ``body`` on a side stream, then capture it into a graph
-    over static copies of ``inputs``; a failed capture raises."""
-    with torch.cuda.device(device), torch.no_grad():
-        static = tuple(None if t is None else t.detach().clone()
-                       for t in inputs)
+def capture(body: Callable, static: tuple, device: torch.device,
+            holds: tuple = (), grad: bool = False) -> Graph:
+    """Run ``body(*static)`` once on a side stream (the warm-up), then
+    capture it into a graph over the same ``static`` tensors, which the
+    caller fills before each replay; a failed capture raises.  Both run
+    under ``no_grad``, or with autograd on where ``grad`` (a training
+    step)."""
+    t0 = time.perf_counter()
+    with torch.cuda.device(device), torch.set_grad_enabled(grad):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -140,8 +163,10 @@ def _capture(body: Callable, inputs: tuple, device: torch.device,
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if seg["device"] == index
             and tuple(seg.get("segment_pool_id", ())) == pool)
+        torch.cuda.synchronize(device)
     outputs = out if isinstance(out, tuple) else (out,)
-    return _Entry(graph, static, outputs, launches, pool_bytes, holds)
+    return Graph(graph, static, outputs, launches, pool_bytes, holds,
+                 time.perf_counter() - t0)
 
 
 #: the graphs of the fused serves called without a cache of their own

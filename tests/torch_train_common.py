@@ -19,39 +19,7 @@ from nlsh_tpu_torch.ops.code_distances import get_code_distance
 from nlsh_tpu_torch.train.base import _make_lr, device_arrays, extra_to
 from nlsh_tpu_torch.train.base import param_leaves
 from nlsh_tpu_torch.utils import checkpoint as tckpt
-
-D, HIDDEN, BITS, BS = 16, (32, 32), 6, 64
-
-
-class Data:
-    """A dataset both packages' trainers take: numpy arrays."""
-
-    def __init__(self, training, testing, ground_truth, knn, metric):
-        self.training = training
-        self.testing = testing
-        self.ground_truth = ground_truth
-        self.training_self_knn = knn
-        self.metric = metric
-        self.prepared = True
-        self.dim = training.shape[1]
-
-    def load(self):
-        return self
-
-
-def make_data(n=512, nq=32, d=D, k=10, metric="cosine", seed=0) -> Data:
-    """Clustered unit rows with exact (float64) cosine kNN."""
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(size=(16, d))
-    pts = centers[rng.integers(0, 16, n + nq)] + 0.3 * rng.normal(size=(n + nq, d))
-    pts = (pts / np.linalg.norm(pts, axis=1, keepdims=True)).astype(np.float32)
-    train, test = pts[:n], pts[n:]
-    sim = train.astype(np.float64) @ train.T
-    np.fill_diagonal(sim, -np.inf)
-    knn = np.argsort(-sim, axis=1, kind="stable")[:, :k].astype(np.int32)
-    gt = np.argsort(-(test.astype(np.float64) @ train.T), axis=1,
-                    kind="stable")[:, :k].astype(np.int32)
-    return Data(train, test, gt, knn, metric)
+from torch_data_common import BITS, BS, D, HIDDEN, Data, make_data  # noqa: F401
 
 
 def head_pair(kind="MultivariateBernoulli", enc="siren", bits=BITS,
@@ -136,7 +104,8 @@ def jax_loss_grad(jtr, params, corpus, knn, batch, key=None):
 
 def port_loss_grad(ttr, params, corpus, knn, batch, generator=None):
     generator = generator or torch.Generator().manual_seed(0)
-    loss = ttr.loss_fn(params, corpus, knn, batch, generator)
+    batch = {**batch, **ttr.step_draws(generator, corpus.shape[0])}
+    loss = ttr.loss_fn(params, corpus, knn, batch, None)
     leaves = param_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
