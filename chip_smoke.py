@@ -142,30 +142,51 @@ each phase one line:
   ``--resume_from`` continues at the saved step; the same timings.
 
 Then the multi-device layer, on the one card through meshes that name it
-more than once (the entries run one after another), each phase one line:
+more than once (the entries run one after another).  Such a mesh runs
+each of the JAX package's multi-device programs as one captured CUDA
+graph replayed per step or batch (``Mesh.on_one_device``): the
+data-parallel step (``parallel.dp.DPStepProgram``), the sharded serve
+(``ShardedIndexer._serve_body``) and the table-sharded ensemble's
+windowed and fixed-cap serve (``MultiTableIndexer._mesh_serve_body``).
+Each phase one line:
 
 * ``ensemble_sharded`` (after ``ensemble_int8``): the committed 8-table
   ensemble over 4 entries (2 tables each) on the windowed (K3), grouped
   (K1) and fixed-cap (K5) engines: ids >= 0.999 of the unsharded serve's,
   recall and summed candidates in the ensemble's windows; the gather
   engine's psum of distinct counts >= the exact count (1,000 queries);
+  on the windowed and fixed-cap engines the replay equals the body run
+  eagerly bit for bit (``replay_equals_eager``), with ``eager_pass_ms``
+  / ``replay_pass_ms`` (5 fetched passes each, and their medians),
+  ``busy`` (each one's device busy share, ``torch.profiler``) and the
+  graph's ``graph_pool_mib``;
 * ``train_dp``: the bench's training step over 2 entries of the card
   against the same data-parallel runner over 2 CPU entries (step 1's
-  loss and gradients rtol 1e-4, 20 losses rtol 1e-3);
+  loss and gradients rtol 1e-4, 20 losses rtol 1e-3); on the card the
+  20 steps replayed against the eager body's (``replay_bitwise``: losses,
+  params and moments, where two eager runs agree), both held to the
+  CPU's losses (``replayed_losses_rel_err``, ``eager_losses_rel_err``);
+  then ``eager_step_ms`` / ``replayed_step_ms``, ``eager_busy`` /
+  ``replayed_busy``, ``capture_s`` and ``graph_pool_mib``;
 * ``sharded``: ``ShardedIndexer`` over one entry and over 4, on the
   grouped, windowed, fixed-cap and gather engines: recall and candidates
   in the single table's windows and equal per query to an ``Indexer``
   at the largest bucket's cap, ids >= 0.999; per-row int8 grouped in the
-  int8 window; ``save``/``load`` at 4 entries, refused on one;
+  int8 window; ``save``/``load`` at 4 entries, refused on one; on the
+  grouped, windowed and fixed-cap engines the replay against the eager
+  body, with the same fields as ``ensemble_sharded``'s;
 * ``config5``: ``benchmarks/configs.py``'s deep-image-96 10M x 96 (seed
   0), exact ground truth on the card, a 14-bit SIREN fitted as
-  ``config_5`` fits it through ``fit(mesh=make_mesh(axis="data"))``,
-  and the bf16 grouped serve at 16 flip probes, lazy corpus on one entry
-  against 4 entries built on the card (candidates equal, ids >= 0.999;
-  on 500 queries K1 against its plain version, and the exact f32 gather
+  ``config_5`` fits it through ``fit(mesh=make_mesh(axis="data"))``
+  (every step a replay of one graph: ``train_s`` beside
+  ``train_s_eager_before``, the fit with its steps eager; the step
+  graph's ``step_capture_s`` and ``step_graph_pool_mib``), and the bf16
+  grouped serve at 16 flip probes, lazy corpus on one entry against 4
+  entries built on the card (candidates equal, ids >= 0.999; on 500
+  queries K1 against its plain version, and the exact f32 gather
   engine's candidates and ranking within bf16's rounding bound): recall,
-  build and pass times,
-  QPS at 2,000 and 16,384 queries, peak device memory.
+  build and pass times, QPS at 2,000 and 16,384 queries, peak device
+  memory.
 
 Then BASELINE's configurations 1 and 2 (``benchmarks/configs.py``'s
 ``config_1`` and ``config_2`` on their synthetic stand-ins, as
@@ -2956,22 +2977,29 @@ def _states_equal(a, b) -> bool:
         torch.equal(x, y) for x, y in zip(_opt_tensors(a), _opt_tensors(b)))
 
 
-def _replay_vs_eager(name: str, trainer, make_state, corpus, knn, arrays,
-                     bs: int) -> dict:
-    """``TRAIN_STEP_CHECK`` steps from ``make_state()`` twice through the
-    eager body on the card and once replayed (``run_segment``, capture
-    included): the two eager runs' losses, params and moments are
-    compared bit for bit, and where they agree the replay must agree bit
-    for bit too; where they do not (an atomic sum in a backward), the
-    replay is held to ``TRAIN_STEP_RTOL`` in the params and
-    ``TRAIN_LOSSES_RTOL`` in the losses.  Returns the replayed state, the
-    eager one and the comparison."""
+def _segment_runs(trainer, corpus, knn, arrays, bs: int):
+    """A trainer's segment, eager (``_run_segment_eager``) and replayed
+    (``run_segment``), as ``run(state, seg_start, n_steps) -> losses``."""
+    return (lambda state, s, n: trainer._run_segment_eager(
+                state, corpus, knn, arrays, s, n, bs)[1],
+            lambda state, s, n: trainer.run_segment(
+                state, corpus, knn, arrays, s, n, bs)[1])
+
+
+def _replay_vs_eager(name: str, eager_run, graphed_run, make_state) -> dict:
+    """``TRAIN_STEP_CHECK`` steps from ``make_state()`` twice through
+    ``eager_run`` (the eager body on the card) and once through
+    ``graphed_run`` (replayed, capture included; each ``run(state,
+    seg_start, n_steps) -> losses``): the two eager runs' losses, params
+    and moments are compared bit for bit, and where they agree the replay
+    must agree bit for bit too; where they do not (an atomic sum in a
+    backward), the replay is held to ``TRAIN_STEP_RTOL`` in the params
+    and ``TRAIN_LOSSES_RTOL`` in the losses.  Returns the replayed state,
+    the eager one, the comparison and the replayed and eager losses."""
     runs = []
-    for run in (trainer._run_segment_eager, trainer._run_segment_eager,
-                trainer.run_segment):
+    for run in (eager_run, eager_run, graphed_run):
         state = make_state()
-        _, losses = run(state, corpus, knn, arrays, 0, TRAIN_STEP_CHECK, bs)
-        runs.append((state, losses))
+        runs.append((state, run(state, 0, TRAIN_STEP_CHECK)))
     (eager, l0), (again, l1), (graphed, l2) = runs
     deterministic = _states_equal(again, eager) and bool(l1.equal(l0))
     bitwise = _states_equal(graphed, eager) and bool(l2.equal(l0))
@@ -2990,7 +3018,7 @@ def _replay_vs_eager(name: str, trainer, make_state, corpus, knn, arrays,
     return graphed, eager, {"eager_deterministic": deterministic,
                             "replay_bitwise": bitwise,
                             "replay_param_rel_err": param_err,
-                            "replay_losses_rel_err": losses_err}
+                            "replay_losses_rel_err": losses_err}, (l2, l0)
 
 
 def _step_arrays(data, n_steps: int, bs: int, n_tables=None,
@@ -3043,8 +3071,9 @@ def phase_train_step(data, profile: bool = False) -> None:
             {"hashing": load_hashing().to(DEVICE).train(), "extra": {}},
             bench.TRAIN_CFG["learning_rate"])
 
-    graphed, eager, replay = _replay_vs_eager(
-        "train_step", trainer, make_state, corpus, knn, dev_arrays, bs)
+    graphed, eager, replay, _ = _replay_vs_eager(
+        "train_step", *_segment_runs(trainer, corpus, knn, dev_arrays, bs),
+        make_state)
     if profile:
         _profile_passes("train_profile", lambda: trainer._run_segment_eager(
             eager, corpus, knn, dev_arrays, 0, 1, bs)[1].cpu(), top=15)
@@ -3068,25 +3097,24 @@ TRAIN_FUSED_STEPS = 20   # timed steps of each of the eager and replayed runs
 TRAIN_FUSED_BUSY = 5     # steps in each pass of the busy-share profile
 
 
-def _step_numbers(trainer, eager, graphed, corpus, knn, arrays,
-                  bs: int) -> dict:
+def _step_numbers(eager_run, graphed_run, eager, graphed) -> dict:
     """The step's time eager and replayed (host ms per step over a
-    segment of ``TRAIN_FUSED_STEPS``, synchronised), each one's device
-    busy share (``_busy_share`` over passes of ``TRAIN_FUSED_BUSY``
-    steps), the capture's seconds and the graph's pool."""
+    segment of ``TRAIN_FUSED_STEPS``, synchronised; ``eager_run`` and
+    ``graphed_run`` as :func:`_replay_vs_eager` takes them, on the states
+    ``eager`` and ``graphed``), each one's device busy share
+    (``_busy_share`` over passes of ``TRAIN_FUSED_BUSY`` steps), the
+    capture's seconds and the graph's pool."""
     import torch
 
     out = {}
-    for name, state, run in (("eager", eager, trainer._run_segment_eager),
-                             ("replayed", graphed, trainer.run_segment)):
+    for name, state, run in (("eager", eager, eager_run),
+                             ("replayed", graphed, graphed_run)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(state, corpus, knn, arrays, TRAIN_STEP_CHECK, TRAIN_FUSED_STEPS,
-            bs)[1].cpu()
+        run(state, TRAIN_STEP_CHECK, TRAIN_FUSED_STEPS).cpu()
         out[f"{name}_step_ms"] = 1e3 * (time.perf_counter() - t0) \
             / TRAIN_FUSED_STEPS
-        share = _busy_share(lambda: run(state, corpus, knn, arrays, 0,
-                                        TRAIN_FUSED_BUSY, bs)[1].cpu())
+        share = _busy_share(lambda: run(state, 0, TRAIN_FUSED_BUSY).cpu())
         out[f"{name}_busy"] = {  # per step
             k: (v / TRAIN_FUSED_BUSY if k.endswith("_ms")
                 or k == "device_events" else v) for k, v in share.items()}
@@ -3135,11 +3163,10 @@ def phase_train_fused(data) -> None:
         arrays = device_arrays(_step_arrays(data, n_steps, bs, n_tables),
                                DEVICE)
         reset_launches()
-        graphed, eager, replay = _replay_vs_eager(
-            f"train_fused {name}", trainer, make_state, corpus, knn, arrays,
-            bs)
-        numbers = _step_numbers(trainer, eager, graphed, corpus, knn,
-                                arrays, bs)
+        runs = _segment_runs(trainer, corpus, knn, arrays, bs)
+        graphed, eager, replay, _ = _replay_vs_eager(f"train_fused {name}",
+                                                     *runs, make_state)
+        numbers = _step_numbers(*runs, eager, graphed)
         check(not any(qk.KERNEL_LAUNCHES.values()),
               f"the training step launched a kernel: {qk.KERNEL_LAUNCHES}")
         fields[name] = {**replay, **numbers}
@@ -3423,6 +3450,10 @@ CONFIG5_GATHER_QUERIES = 500
 CONFIG5_BITS = 14
 CONFIG5_STEPS = 400
 CONFIG5_SUBSET = 131_072
+# config 5's fit with its data-parallel steps run eagerly, before they
+# were replayed: the range of train_s over five whole runs of this script
+# on an H100 80GB HBM3 at 700 W
+CONFIG5_EAGER_TRAIN_S = (3.16, 3.49)
 
 
 # a bf16 row of a unit vector is off by at most 2**-9 of its norm, so a
@@ -3456,6 +3487,54 @@ def _slot_agreement(a: np.ndarray, b: np.ndarray) -> float:
     return float((a == b).mean())
 
 
+class _Uncounted:
+    """Kernel launches made inside are taken off the tallies again: the
+    eager bodies a replay is compared with and timed against."""
+
+    def __enter__(self):
+        from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+        self.kept = dict(qk.KERNEL_LAUNCHES)
+
+    def __exit__(self, *exc):
+        from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+        qk.KERNEL_LAUNCHES.update(self.kept)
+
+
+def _mesh_replay(what: str, replay, body, q, graphs) -> dict:
+    """A one-card mesh's serve replayed (``replay()``: the packed result
+    of ``query_async``, whose graph is captured) against its body run
+    eagerly on the same batch (``body(q, None)``: flip probes), bit for
+    bit; then the eager and the replayed pass (ms, fetched) and each
+    one's busy share, and the graph's pool.  The eager runs' launches are
+    not counted."""
+    import torch
+
+    packed = replay()
+    with _Uncounted(), torch.no_grad():
+        eager = body(q, None)
+        check(bool(torch.equal(packed, eager)),
+              f"{what}: the replay differs from the eager body")
+
+        def eager_pass():
+            with torch.no_grad():
+                return body(q, None).cpu().numpy()
+
+        def replay_pass():
+            return replay().cpu().numpy()
+
+        eager_ms = _pass_ms(eager_pass, FUSED_PASSES)
+        busy_eager = _busy_share(eager_pass)
+    replay_ms = _pass_ms(replay_pass, FUSED_PASSES)
+    return {"replay_equals_eager": True, "eager_pass_ms": eager_ms,
+            "eager_median_ms": float(np.median(eager_ms)),
+            "replay_pass_ms": replay_ms,
+            "replay_median_ms": float(np.median(replay_ms)),
+            "busy": {"eager": busy_eager, "replay": _busy_share(replay_pass)},
+            "graph_pool_mib": graphs.pool_bytes()[-1] / 2 ** 20}
+
+
 def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
                   tmp: str) -> dict:
     """``ShardedIndexer`` over ``make_mesh(1, "shard")`` and over 4 entries
@@ -3468,8 +3547,12 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     query by query, ids on >= 0.999 of its slots.  Per-row int8 on the
     grouped engine: recall in the int8 window.  ``save``/``load`` at
     D = 4, and a load on a one-entry mesh refused.  ``build_s``, the
-    median of 3 passes and QPS per mesh and engine.  Returns the
-    launches of the sharded serves."""
+    median of 3 passes and QPS per mesh and engine.  Both meshes repeat
+    one card, so the grouped, windowed and fixed-cap serves replay one
+    captured graph per batch: each replay equals the serve's body run
+    eagerly bit for bit, with the eager and the replayed pass, their busy
+    shares and the graph's pool (:func:`_mesh_replay`).  Returns the
+    launches of the sharded serves (captures' warm-ups and replays)."""
     import torch
 
     from nlsh_tpu_torch.index import Indexer
@@ -3498,6 +3581,7 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
                 "id_agreement": agree,
                 "slot_agreement": _slot_agreement(ids, r_ids)}
 
+    q = torch.as_tensor(queries, device=DEVICE)
     reset_launches()
     out = {}
     for d, mesh in ((1, make_mesh(1, "shard")),
@@ -3516,6 +3600,11 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
             row["engines"][engine] = {
                 **res, "median_s": timed["median_s"],
                 "qps": queries.shape[0] / timed["median_s"]}
+            if engine != "gather":
+                row["engines"][engine].update(_mesh_replay(
+                    f"sharded D={d} {engine}",
+                    lambda: idx.query_async(q, **kw),
+                    idx._serve_body(K, HASH_TIMES, "flip"), q, idx._graphs))
         if d == SHARDS:
             idx.engine = "grouped"
             path = os.path.join(tmp, "sharded.npz")
@@ -3554,7 +3643,8 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
         out[str(d)] = row
     launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
                              "bucket_scores_auto")
-    emit("sharded", n_queries=int(queries.shape[0]), k=K,
+    emit("sharded", card=CARD["nvidia_smi"],
+         n_queries=int(queries.shape[0]), k=K,
          hash_times=HASH_TIMES, indexer_cap=ref_cap, meshes=out,
          launches=launches)
     return launches
@@ -3568,13 +3658,18 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     recall and summed candidates in their windows (and equal to the
     unsharded serve's); on the gather engine (1,000 queries)
     ``n_candidates``, the psum of each entry's distinct count, is at
-    least the exact distinct count.  Returns the launches."""
+    least the exact distinct count.  The windowed and fixed-cap serves
+    replay one captured graph per batch: each replay equals the body run
+    eagerly bit for bit, with the eager and the replayed pass, their busy
+    shares and the graph's pool (:func:`_mesh_replay`).  Returns the
+    launches."""
     import torch
 
     from nlsh_tpu_torch.parallel import MultiTableIndexer
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    q = torch.as_tensor(queries, device=DEVICE)
     reset_launches()
     t0 = time.perf_counter()
     midx = MultiTableIndexer(load_ensemble(), corpus, metric="cosine",
@@ -3603,6 +3698,11 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
         per[engine] = {"recall_at_10": recall, "mean_n_candidates": mean_cand,
                        "vs_unsharded": agree, "median_s": timed["median_s"],
                        "qps": queries.shape[0] / timed["median_s"]}
+        if engine != "grouped":
+            per[engine].update(_mesh_replay(
+                f"table-sharded {engine}", lambda: midx.query_async(q, **kw),
+                midx._mesh_serve_body(K, MT_HASH_TIMES, "flip"), q,
+                midx._graphs))
     launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
                              "bucket_scores_auto")
     midx.engine = "gather"
@@ -3615,7 +3715,8 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     gather_agree = id_agreement(x_ids, mt_ids[:MT_GATHER_QUERIES])
     check(gather_agree >= 0.98,
           f"table-sharded gather vs unsharded {gather_agree} < 0.98")
-    emit("ensemble_sharded", n_queries=int(queries.shape[0]), k=K,
+    emit("ensemble_sharded", card=CARD["nvidia_smi"],
+         n_queries=int(queries.shape[0]), k=K,
          hash_times=MT_HASH_TIMES, entries=SHARDS,
          tables_per_entry=midx.n_tables // SHARDS, build_s=build_s,
          engines=per, gather_queries=MT_GATHER_QUERIES,
@@ -3632,7 +3733,12 @@ def phase_train_dp(data) -> None:
     the same data-parallel runner over 2 CPU entries, from the committed
     params on the same injected arrays: step 1's ``pmean``-ed loss and
     every gradient within ``TRAIN_STEP_RTOL``, the first 20 losses within
-    ``TRAIN_LOSSES_RTOL``."""
+    ``TRAIN_LOSSES_RTOL``.  On the card the 20 steps replayed (every step
+    a replay of the captured ``DPStepProgram``) against the eager body's
+    (``_run_segment_eager``; :func:`_replay_vs_eager`), both held to the
+    CPU's losses; then the step's time eager and replayed, each one's
+    busy share, the capture's seconds and the graph's pool
+    (:func:`_step_numbers`)."""
     import torch
 
     import bench
@@ -3642,42 +3748,59 @@ def phase_train_dp(data) -> None:
     from nlsh_tpu_torch.train.base import device_arrays
 
     bs = bench.TRAIN_CFG["batch_size"]
-    n = data.training.shape[0]
-    rng = np.random.default_rng(1)
-    arrays = {"anchor": rng.integers(0, n, TRAIN_STEP_CHECK * bs),
-              "col": rng.integers(0, 20, TRAIN_STEP_CHECK * bs),
-              "neg": rng.integers(0, n, TRAIN_STEP_CHECK * bs)}
+    lr = bench.TRAIN_CFG["learning_rate"]
+    arrays = _step_arrays(data, TRAIN_STEP_CHECK + TRAIN_FUSED_STEPS, bs,
+                          seed=1)
     trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
     out = {}
     for device, mesh in (("cpu", Mesh(["cpu"] * DP_ENTRIES, "data")),
                          (DEVICE, _card_mesh(DP_ENTRIES, "data"))):
-        params = {"hashing": load_hashing().to(mesh.devices[0]).train(),
-                  "extra": {}}
-        corpus = torch.as_tensor(data.training, device=mesh.devices[0])
+        home = mesh.devices[0]
+        corpus = torch.as_tensor(data.training, device=home)
         knn = torch.as_tensor(data.training_self_knn.astype(np.int64),
-                              device=mesh.devices[0])
-        dev_arrays = device_arrays(arrays, mesh.devices[0])
+                              device=home)
+        dev_arrays = device_arrays(arrays, home)
         run = build_dp_segment_runner(trainer, bs, mesh)
-        state = trainer.make_state(params, bench.TRAIN_CFG["learning_rate"])
-        loss, grads = run.loss_and_grads(state, corpus, knn, dev_arrays, 0)
+
+        def make_state():
+            return trainer.make_state(
+                {"hashing": load_hashing().to(home).train(), "extra": {}}, lr)
+
+        loss, grads = run.loss_and_grads(make_state(), corpus, knn,
+                                         dev_arrays, 0)
         t0 = time.perf_counter()
-        _, losses = run(state, corpus, knn, dev_arrays, 0, TRAIN_STEP_CHECK)
+        _, losses = run(make_state(), corpus, knn, dev_arrays, 0,
+                        TRAIN_STEP_CHECK)
         losses = losses.cpu()
         out[device] = (loss, grads, losses, time.perf_counter() - t0)
     (l0, g0, s0, cpu_s), (l1, g1, s1, card_s) = out["cpu"], out[DEVICE]
+    runs = (lambda state, s, n: run._run_segment_eager(
+                state, corpus, knn, dev_arrays, s, n)[1],
+            lambda state, s, n: run(state, corpus, knn, dev_arrays, s, n)[1])
+    graphed, eager, replay, (replayed_losses, eager_losses) = \
+        _replay_vs_eager("train_dp", *runs, make_state)
     loss_err = _rel_err(l1, l0)
     grad_err = max(_rel_err(a, b) for a, b in zip(g1, g0))
-    losses_err = float(((s1 - s0).abs() / s0.abs()).max())
     check(loss_err <= TRAIN_STEP_RTOL and grad_err <= TRAIN_STEP_RTOL,
           f"data-parallel step 1 card vs CPU: loss {loss_err}, gradients "
           f"{grad_err}")
-    check(losses_err <= TRAIN_LOSSES_RTOL,
-          f"data-parallel {TRAIN_STEP_CHECK} losses card vs CPU: "
-          f"{losses_err}")
-    emit("train_dp", entries=DP_ENTRIES, batch_size=bs,
-         steps=TRAIN_STEP_CHECK, step1_loss=float(l1), step1_loss_rel_err=loss_err,
-         step1_grad_rel_err=grad_err, losses_rel_err=losses_err,
-         losses=s1.tolist(), card_s=card_s, cpu_s=cpu_s)
+    vs_cpu = {}
+    for name, got in (("losses", s1), ("replayed_losses", replayed_losses),
+                      ("eager_losses", eager_losses)):
+        vs_cpu[name] = float(((got.cpu() - s0).abs() / s0.abs()).max())
+        check(vs_cpu[name] <= TRAIN_LOSSES_RTOL,
+              f"data-parallel {TRAIN_STEP_CHECK} {name} card vs CPU: "
+              f"{vs_cpu[name]}")
+    numbers = _step_numbers(*runs, eager, graphed)
+    emit("train_dp", card=CARD["nvidia_smi"], entries=DP_ENTRIES,
+         batch_size=bs, steps=TRAIN_STEP_CHECK, step1_loss=float(l1),
+         step1_loss_rel_err=loss_err, step1_grad_rel_err=grad_err,
+         losses_rel_err=vs_cpu["losses"],
+         replayed_losses_rel_err=vs_cpu["replayed_losses"],
+         eager_losses_rel_err=vs_cpu["eager_losses"], losses=s1.tolist(),
+         card_s=card_s, cpu_s=cpu_s, **replay, **numbers)
+    del graphed, eager
+    torch.cuda.empty_cache()
 
 
 class _SubsetData:
@@ -3743,11 +3866,15 @@ def phase_config5(tmp: str) -> dict:
                              os.path.join(tmp, "config5"), margin=0.5,
                              positive_k=20, balance_lambda=1.5)
     t0 = time.perf_counter()
-    state = trainer.fit(K=K, batch_size=2048, learning_rate=1e-3, epochs=100,
-                        test_every_updates=10 ** 9, max_steps=CONFIG5_STEPS,
-                        hash_times=10, mesh=make_mesh(axis="data"))
+    with _Captures() as captured:
+        state = trainer.fit(K=K, batch_size=2048, learning_rate=1e-3,
+                            epochs=100, test_every_updates=10 ** 9,
+                            max_steps=CONFIG5_STEPS, hash_times=10,
+                            mesh=make_mesh(axis="data"))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    check(len(captured.graphs) == 1,
+          f"config 5 fit: {len(captured.graphs)} step graphs, not one")
     check(state.step == CONFIG5_STEPS, f"config 5 fit: {state.step} steps")
     hashing = state.params["hashing"].eval()
 
@@ -3812,9 +3939,13 @@ def phase_config5(tmp: str) -> dict:
           "config 5: candidates differ between the lazy and 4-entry serves")
     agree = id_agreement(a_ids, b_ids)
     check(agree >= 0.999, f"config 5: lazy vs 4-entry ids {agree} < 0.999")
-    emit("config5", n_corpus=CONFIG5_N, dim=96, n_queries=CONFIG5_QUERIES,
+    emit("config5", card=CARD["nvidia_smi"], n_corpus=CONFIG5_N, dim=96,
+         n_queries=CONFIG5_QUERIES,
          bits=CONFIG5_BITS, hash_times=HASH_TIMES, k=K, data_s=data_s,
          gt_s=gt_s, train_steps=state.step, train_s=train_s,
+         train_s_eager_before=CONFIG5_EAGER_TRAIN_S,
+         step_capture_s=captured.graphs[0].capture_s,
+         step_graph_pool_mib=captured.graphs[0].pool_bytes / 2 ** 20,
          serves=serves, lazy_vs_device=agree, big_batch=CONFIG5_BIG_BATCH,
          peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches=launches)

@@ -17,6 +17,16 @@ process group is initialised (:mod:`nlsh_tpu_torch.parallel.multihost`)
 they then call ``torch.distributed.all_gather`` / ``all_reduce`` across
 the processes.  Entry ``i`` of process ``r`` is global entry ``r *
 mesh.size + i`` (:meth:`Mesh.global_index`).
+
+On a mesh whose entries all name one device, in a single process
+(:meth:`Mesh.on_one_device`), the three collectives are plain ops on
+that device, so a whole D-entry program can be captured as one CUDA
+graph: the data-parallel step (:mod:`~nlsh_tpu_torch.parallel.dp`), the
+sharded serve (:mod:`~nlsh_tpu_torch.parallel.sharded_index`) and the
+table-sharded ensemble's serve (:mod:`~nlsh_tpu_torch.parallel.
+multitable`) replay one on such a CUDA mesh.  Meshes over several
+devices or processes (whose ``gloo`` collectives a graph cannot capture)
+run those programs eagerly.
 """
 
 from __future__ import annotations
@@ -69,6 +79,12 @@ class Mesh:
     def global_size(self) -> int:
         """Entries over every process of the process group."""
         return self.size * process_count()
+
+    def on_one_device(self) -> bool:
+        """Whether every entry names the same device and this is the only
+        process: the collectives are then ops on that one device, and a
+        D-entry program can be captured whole."""
+        return len(set(self.devices)) == 1 and process_count() == 1
 
     def global_index(self, i: int) -> int:
         """The global index of this process's entry ``i``."""

@@ -36,12 +36,14 @@ divisible by its global entry count D) the tables are sharded: entry
 ``d`` holds tables ``[d * lc, (d + 1) * lc)`` (``lc = L / D``) in a flat
 layout of its own on its device and answers its tables' candidates;
 the per-entry lists are gathered and merged with the same duplicate
-collapse.  The merged ids equal the unsharded ensemble's; ``n_candidates``
-is the psum of the per-entry counts, so on the gather engine it is an
-upper bound of the distinct count when one row is a candidate on
-several entries (exchanging whole candidate sets would cost more than
-the rerank it counts).  Every process holds every table's CSR arrays
-and modules (queries are hashed on the mesh's first device), so
+collapse (on a mesh of one device, on the windowed and fixed-cap
+engines, in one captured graph per batch shape).  The merged ids equal
+the unsharded ensemble's; ``n_candidates`` is the psum of the per-entry
+counts, so on the gather engine it is an upper bound of the distinct
+count when one row is a candidate on several entries (exchanging whole
+candidate sets would cost more than the rerank it counts).  Every
+process holds every table's CSR arrays and modules (queries are hashed
+on the mesh's first device), so
 :meth:`MultiTableIndexer.exact_query_size`, ``calibrate`` and ``save``
 behave as without a mesh.
 
@@ -943,6 +945,23 @@ class MultiTableIndexer:
         merged, _ = self._dedupe_topk(ids, scores, k, self.n_rows)
         return merged, n_cand
 
+    def _mesh_serve_body(self, k: int, hash_times: int, probe_mode: str):
+        """``body(queries, uniforms)`` of one table-sharded serve on the
+        windowed or fixed-cap engine (the JAX package's
+        ``_query_serving_sharded``): every table's probes (sampled probes
+        from the given uniforms), each entry's serve of its tables' flat
+        layout, the gathered lists' duplicate collapse and the summed
+        candidates (:meth:`_query_serving`), packed ``(nq, k + 1)``
+        int32."""
+        def body(queries, uniforms):
+            pids, pvalid = _table_probes(self.hashings, queries, hash_times,
+                                         probe_mode, uniforms)
+            merged, n_cand = self._query_serving(queries, pids, pvalid, k,
+                                                 plain=False)
+            return torch.cat([merged, n_cand[:, None]], dim=1)
+
+        return body
+
     @staticmethod
     def _dedupe_topk(ids, scores, k: int, n_rows: int):
         """Collapse duplicate candidate ids (one corpus row found through
@@ -974,18 +993,30 @@ class MultiTableIndexer:
         graph on the card; the windowed engine at :meth:`calibrate`'s
         count, guarded, or at the static bound) and return ONE packed
         ``[topk_ids | n_candidates]`` tensor, or a :class:`_Guarded`
-        whose need is read in the same copy as the ids.  The grouped
-        engine keeps its exact group bound read on the host, and the
-        gather engine, the mesh and ``plain=True`` (the kernels' plain
-        PyTorch versions) serve eagerly: they return ``(topk_ids,
-        n_candidates)``."""
+        whose need is read in the same copy as the ids.  On a mesh of one
+        device (:meth:`Mesh.on_one_device`) the same two engines serve
+        every entry's tables, gather, sum and collapse the duplicates in
+        one graph (:meth:`_mesh_serve_body`; the windowed engine at the
+        static bound, as the mesh always serves it) and return the packed
+        tensor.  The grouped engine keeps its exact group bound read on
+        the host, and the gather engine, meshes over several devices or
+        processes and ``plain=True`` (the kernels' plain PyTorch
+        versions) serve eagerly: they return ``(topk_ids,
+        n_candidates)``.  On the CPU a graph's body runs eagerly."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
-        if (self.mesh is None and not plain
-                and self.engine in ("windowed", "fixed")):
+        if not plain and self.engine in ("windowed", "fixed") and (
+                self.mesh is None or self.mesh.on_one_device()):
             uniforms = _table_uniforms(self.hashings, queries.shape[0],
                                        hash_times, generator, probe_mode,
                                        self.device)
+            if self.mesh is not None:
+                layouts = tuple(self._entry_layouts())
+                key = ("mt_mesh_serve", tuple(map(id, layouts)), k,
+                       hash_times, self.engine, probe_mode)
+                return self._graphs.run(
+                    key, self._mesh_serve_body(k, hash_times, probe_mode),
+                    (queries, uniforms), holds=(*self.hashings, *layouts))
             return _fused_mt_async(
                 self.hashings, self._serving_layout(), queries, uniforms,
                 k=k, hash_times=hash_times, engine=self.engine,

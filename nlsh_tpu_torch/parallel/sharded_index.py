@@ -11,7 +11,10 @@ indexer.Indexer`), and the per-shard (score, global id) lists are merged
 with one :func:`~nlsh_tpu_torch.parallel.mesh.all_gather` and a top-k
 that keeps the lowest flat index (the lower shard) among equal scores,
 as ``lax.top_k`` does; ``n_candidates`` is the :func:`psum` of the
-shards' probed occupancies.
+shards' probed occupancies.  On a mesh of one device the whole serve
+(hash, every shard's serve, merge, sum, pack) is one captured CUDA graph
+replayed per batch, the JAX package's one jitted program
+(``_serving_query_fn``); see :meth:`ShardedIndexer.query_async`.
 
 Exactness: a hard hash partitions every shard's rows among the buckets,
 so the union of the shards' candidates is the single-table candidate set,
@@ -68,6 +71,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     check_fingerprint,
     corpus_fingerprint,
 )
+from nlsh_tpu_torch.utils.graphs import GraphCache
 
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
 _SERVES = {"grouped": serving_query_grouped,
@@ -126,6 +130,7 @@ class ShardedIndexer:
         self.engine = engine  # setter: validates, resolves "auto"
         self._layouts = None
         self._layouts_sig = None
+        self._graphs = GraphCache()  # the fused serve's, of these layouts
         self._hashings = {}
         self.hashing = self._hashing_on(self.device, hashing)
         n_dev = mesh.global_size()
@@ -245,6 +250,7 @@ class ShardedIndexer:
         self._engine = value
         if old is not None and value != old:
             self._layouts = None
+            self._graphs.clear()
 
     # -- persistence -------------------------------------------------------------
 
@@ -342,6 +348,7 @@ class ShardedIndexer:
         if self._layouts is not None and self._layouts_sig == sig:
             return self._layouts
         self._layouts = None
+        self._graphs.clear()  # they read the old layouts
         br = qk._br(self.block_rows)
         counts_np = self.counts.cpu().numpy()
         cap = qk.round_cap(int(counts_np.max()), br)
@@ -392,14 +399,19 @@ class ShardedIndexer:
 
     # -- query -------------------------------------------------------------------
 
-    def _sync_bound(self, layout, probe_ids, probe_valid) -> int | None:
+    def _sync_bound(self, queries, uniforms, hash_times: int,
+                    probe_mode: str) -> int | None:
         """The opt-in exact group bound of a one-entry grouped serve
-        (``NLSH_SHARDED_SYNC_BOUND``): one host read of the probes, so off
-        by default; worth it only where the static bound is several-fold
-        loose."""
+        (``NLSH_SHARDED_SYNC_BOUND``): the probes hashed and read on the
+        host before the serve, so off by default; worth it only where the
+        static bound is several-fold loose."""
         if (self._engine != "grouped" or self.n_shards != 1
                 or os.environ.get("NLSH_SHARDED_SYNC_BOUND", "0") == "0"):
             return None
+        layout = self._build_layouts()[0]
+        probe_ids, probe_valid = self.hashing.hash(
+            queries, n_probes=hash_times, probe_mode=probe_mode,
+            uniforms=uniforms)
         br = layout.br
         g_exact = qk.grouped_exact_bound(layout.counts, probe_ids,
                                          probe_valid, layout.cap, qk.GROUP_W,
@@ -407,6 +419,48 @@ class ShardedIndexer:
         return qk.round_group_override(g_exact, qk.grouped_static_bound(
             probe_ids.numel(), layout.cap // br, layout.total_blocks,
             qk.GROUP_W))
+
+    def _merge(self, parts, k: int, largest: bool) -> torch.Tensor:
+        """The entries' ``(local top ids, values, candidates)`` merged
+        across the mesh: global ids (``+ g * n_local``), one
+        :func:`merge_top` of the gathered lists and the :func:`psum` of
+        the candidates, packed ``(nq, k + 1)`` int32."""
+        ids = [torch.where(top >= 0, top + g * self.n_local, -1)
+               for (g, _), (top, _, _) in zip(self._entries(), parts)]
+        merged = merge_top(all_gather([p[1] for p in parts]),
+                           all_gather(ids), k, largest)
+        n_cand = psum([p[2] for p in parts])
+        return torch.cat([merged, n_cand[:, None].to(torch.int32)], dim=1)
+
+    def _serve_body(self, k: int, hash_times: int, probe_mode: str,
+                    g_override: int | None = None, plain: bool = False):
+        """``body(queries, uniforms)`` of one serve on the kernel engines
+        (the JAX package's ``_serving_query_fn``): the probe hash (sampled
+        probes from the given uniforms), each entry's serve of its layout
+        (with the kernels' plain versions if ``plain``; ``g_override``
+        sizes a one-entry grouped serve's group table), and on more than
+        one entry the merge, packed ``(nq, k + 1)`` int32."""
+        serve = _SERVES[self._engine]
+
+        def body(queries, uniforms):
+            probe_ids, probe_valid = self.hashing.hash(
+                queries, n_probes=hash_times, probe_mode=probe_mode,
+                uniforms=uniforms)
+            layouts = self._build_layouts()
+            if self.n_shards == 1:  # one shard: its answer is the answer
+                lay = layouts[0]
+                kw = {} if g_override is None else \
+                    {"g_total_override": g_override}
+                top, _, cand = serve(lay, queries, probe_ids, probe_valid,
+                                     lay.counts, k=k, plain=plain, **kw)
+                return torch.cat([top, cand[:, None]], dim=1)
+            return self._merge([serve(
+                lay, *(t.to(dev) for t in (queries, probe_ids, probe_valid)),
+                lay.counts, k=k, plain=plain)
+                for (_, dev), lay in zip(self._entries(), layouts)], k,
+                largest=True)
+
+        return body
 
     @torch.no_grad()
     def query_async(self, queries, k: int = 10, hash_times: int = 10,
@@ -416,63 +470,55 @@ class ShardedIndexer:
         """Enqueue a multi-probe query against every shard: returns the
         packed ``(nq, k + 1)`` int32 ``[topk_ids | n_candidates]`` on the
         mesh's first device, for :meth:`fetch`.  Sampled probes draw from
-        ``generator`` (default: one seeded 0).  ``plain=True`` serves the
-        kernel engines with the kernels' plain PyTorch versions."""
+        ``generator`` (default: one seeded 0), before the serve.
+
+        On a mesh of one device (:meth:`Mesh.on_one_device`) the grouped,
+        windowed and fixed-cap engines serve through one captured graph of
+        :meth:`_serve_body` per batch shape, replayed on the card (on the
+        CPU the body runs eagerly); the graphs are dropped with the
+        layouts they read.  ``plain=True`` (the kernels' plain PyTorch
+        versions), meshes over several devices or processes, the gather
+        engine and metrics the kernel engines do not serve run
+        eagerly."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         if generator is None and probe_mode == "sample" and hash_times > 1:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        if self._engine == "gather" or self.metric not in _SERVING_METRICS:
+            return self._gather(queries, k, hash_times, generator,
+                                query_chunk, probe_mode)
+        uniforms = self.hashing.probe_uniforms(
+            queries.shape[0], hash_times, generator, probe_mode,
+            device=self.device)
+        bound = self._sync_bound(queries, uniforms, hash_times, probe_mode)
+        body = self._serve_body(k, hash_times, probe_mode, bound, plain)
+        if plain or not self.mesh.on_one_device():
+            return body(queries, uniforms)
+        key = (self._engine, k, hash_times, probe_mode, self.serving_dtype,
+               bound)
+        return self._graphs.run(key, body, (queries, uniforms),
+                                holds=tuple(self._build_layouts()))
+
+    def _gather(self, queries, k: int, hash_times: int, generator,
+                query_chunk, probe_mode: str) -> torch.Tensor:
+        """The gather engine on every shard (the lazy corpus uploaded on
+        first use), merged: packed ``(nq, k + 1)`` int32."""
         probe_ids, probe_valid = self.hashing.hash(
             queries, n_probes=hash_times, generator=generator,
             probe_mode=probe_mode)
-        inputs = {}
-
-        def on(dev):
-            if dev not in inputs:
-                inputs[dev] = tuple(t.to(dev) for t in (queries, probe_ids,
-                                                        probe_valid))
-            return inputs[dev]
-
-        ids, vals, n_cand = [], [], []
-        if self._engine != "gather" and self.metric in _SERVING_METRICS:
-            serve = _SERVES[self._engine]
-            layouts = self._build_layouts()
-            if self.n_shards == 1:
-                # one shard: its answer is the answer
-                lay = layouts[0]
-                bound = self._sync_bound(lay, probe_ids, probe_valid)
-                kw = {} if bound is None else {"g_total_override": bound}
-                top, _, cand = serve(lay, queries, probe_ids, probe_valid,
-                                     lay.counts, k=k, plain=plain, **kw)
-                return torch.cat([top, cand[:, None]], dim=1)
-            for (g, dev), lay in zip(self._entries(), layouts):
-                qs, pid, pv = on(dev)
-                top, score, cand = serve(lay, qs, pid, pv, lay.counts, k=k,
-                                         plain=plain)
-                ids.append(torch.where(top >= 0, top + g * self.n_local, -1))
-                vals.append(score)
-                n_cand.append(cand)
-            largest = True
-        else:
-            if self._corpus_local is None:  # the lazy corpus, on use
-                self._corpus_local = self._shard_rows(self._corpus_host)
-            if query_chunk is None:
-                query_chunk = default_query_chunk(
-                    hash_times, self.probe_budget, queries.shape[1])
-            for (g, dev), table, rows in zip(self._entries(), self._tables,
-                                             self._corpus_local):
-                qs, pid, pv = on(dev)
-                top, dist, cand = query_bucket_table(
-                    table, rows, qs, pid, pv, k=k,
-                    probe_budget=self.probe_budget, metric=self.metric,
-                    query_chunk=query_chunk)
-                ids.append(torch.where(top >= 0, top + g * self.n_local, -1))
-                vals.append(dist)
-                n_cand.append(cand)
-            largest = False
-        merged = merge_top(all_gather(vals), all_gather(ids), k, largest)
-        return torch.cat([merged, psum(n_cand)[:, None].to(torch.int32)],
-                         dim=1)
+        if self._corpus_local is None:  # the lazy corpus, on use
+            self._corpus_local = self._shard_rows(self._corpus_host)
+        if query_chunk is None:
+            query_chunk = default_query_chunk(
+                hash_times, self.probe_budget, queries.shape[1])
+        return self._merge([query_bucket_table(
+            table, rows,
+            *(t.to(dev) for t in (queries, probe_ids, probe_valid)), k=k,
+            probe_budget=self.probe_budget, metric=self.metric,
+            query_chunk=query_chunk)
+            for (_, dev), table, rows in zip(self._entries(), self._tables,
+                                             self._corpus_local)], k,
+            largest=False)
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:

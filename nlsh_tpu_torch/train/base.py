@@ -222,8 +222,9 @@ class TrainState:
     table), "extra": nested dict of tensors}``, ``opt_state`` the
     :class:`Amsgrad` over them, ``step`` the updates made.
     ``step_program`` is the captured step of :meth:`Trainer.run_segment`
-    on the card (a :class:`StepProgram`), which reads these params and
-    moments by address; ``fit`` drops it when it returns."""
+    on the card (a :class:`StepProgram`), or of the data-parallel runner
+    on a mesh of the one card (its ``DPStepProgram``), which reads these
+    params and moments by address; ``fit`` drops it when it returns."""
 
     params: dict
     opt_state: Amsgrad
@@ -336,11 +337,10 @@ class StepProgram:
     graph reads the params, the moments, the corpus and the kNN table by
     address, and the program holds them."""
 
-    def __init__(self, trainer: "Trainer", state: TrainState,
+    def __init__(self, key: tuple, trainer: "Trainer", state: TrainState,
                  corpus: torch.Tensor, knn: torch.Tensor, arrays: dict,
                  draws: dict, batch_size: int, capacity: int):
-        self.key = _program_key(trainer, state, corpus, knn, arrays, draws,
-                                batch_size)
+        self.key = key
         self.trainer, self.params, self.opt = trainer, state.params, \
             state.opt_state
         self.corpus, self.knn = corpus, knn
@@ -380,21 +380,28 @@ class StepProgram:
         self.losses.index_copy_(0, at, loss.detach().view(1))
         self.i.add_(1)
 
-    def run(self, arrays: dict, draws: dict, table: torch.Tensor,
-            first_step: int, n: int, graphed: bool) -> torch.Tensor:
-        """``n <= capacity`` steps from the epoch step ``first_step``
-        (``draws`` and ``table``: the chunk's rows, on the device):
-        replays of the graph where ``graphed`` (the first one captured
-        after its warm-up, which is the chunk's first step), else the
-        body run eagerly; returns the ``(n,)`` losses."""
+    def _fill(self, arrays: dict, draws: dict, first_step: int, j: int,
+              n: int) -> None:
+        """Copy the chunk's rows into the static inputs: epoch steps
+        ``first_step, ...`` of the arrays, rows ``j, ...`` of the
+        segment's draws."""
         bs = self.batch_size
+        for name, a in self.arrays.items():
+            a[:n * bs].copy_(arrays[name][first_step * bs:
+                                          (first_step + n) * bs])
+        for name, d in self.draws.items():
+            d[:n].copy_(draws[name][j:j + n])
+
+    def run(self, arrays: dict, draws: dict, table: torch.Tensor,
+            seg_start: int, j: int, n: int, graphed: bool) -> torch.Tensor:
+        """The segment's steps ``j, ..., j + n - 1`` (``n <= capacity``;
+        ``draws`` and ``table``: the segment's, on the device): replays
+        of the graph where ``graphed`` (the first one captured after its
+        warm-up, which is the chunk's first step), else the body run
+        eagerly; returns the ``(n,)`` losses."""
         with torch.no_grad():
-            for name, a in self.arrays.items():
-                a[:n * bs].copy_(arrays[name][first_step * bs:
-                                              (first_step + n) * bs])
-            for name, d in self.draws.items():
-                d[:n].copy_(draws[name])
-            self.table[:n].copy_(table)
+            self._fill(arrays, draws, seg_start + j, j, n)
+            self.table[:n].copy_(table[j:j + n])
             self.i.zero_()
         done = 0
         if graphed and self.graph is None:
@@ -411,17 +418,46 @@ class StepProgram:
 
 
 def _program_key(trainer, state, corpus, knn, arrays, draws,
-                 batch_size) -> tuple:
+                 batch_size, step_dims: int = 1) -> tuple:
     """What a :class:`StepProgram` is built for: a program is replayed
     only for the same trainer, state, corpus and kNN (by address) and
-    the same batch size, array and draw shapes."""
+    the same batch size, array and draw shapes (a draw's shape past its
+    first ``step_dims`` dimensions)."""
     return (id(trainer), id(state.params), id(state.opt_state),
             corpus.device, corpus.data_ptr(), tuple(corpus.shape),
             knn.data_ptr(), tuple(knn.shape), batch_size,
             tuple((name, a.dtype, tuple(a.shape[1:]))
                   for name, a in arrays.items()),
-            tuple((name, d.dtype, tuple(d.shape[1:]))
+            tuple((name, d.dtype, tuple(d.shape[step_dims:]))
                   for name, d in draws.items()))
+
+
+def held_program(state: TrainState, key: tuple, graphed: bool,
+                 make: Callable[[], StepProgram]) -> StepProgram:
+    """The program a segment runs: the state's captured one where
+    ``graphed`` and its key is ``key``, else a new one from ``make()``
+    (held by the state where ``graphed``; the old graph's pool is
+    dropped first).  An eager segment builds its own, never held."""
+    if not graphed:
+        return make()
+    if state.step_program is None or state.step_program.key != key:
+        state.step_program = None
+        state.step_program = make()
+    return state.step_program
+
+
+def run_chunks(state: TrainState, program: StepProgram, arrays: dict,
+               draws: dict, table: torch.Tensor, seg_start: int,
+               n_steps: int, graphed: bool):
+    """A segment of ``n_steps`` as chunks of the program's capacity;
+    counts the steps on the state and its optimiser.  Returns the state
+    and the ``(n_steps,)`` losses."""
+    losses = [program.run(arrays, draws, table, seg_start, j,
+                          min(program.capacity, n_steps - j), graphed)
+              for j in range(0, n_steps, program.capacity)]
+    state.opt_state.advance(n_steps)
+    state.step += n_steps
+    return state, torch.cat(losses)
 
 
 class Trainer(abc.ABC):
@@ -518,24 +554,13 @@ class Trainer(abc.ABC):
             step_seed, seg_start, n_steps, corpus.shape[0]).items()}
         table = host_to(torch.from_numpy(state.opt_state.step_table(n_steps)),
                         device)
-        program = state.step_program
-        if not graphed:
-            program = StepProgram(self, state, corpus, knn, arrays, draws,
-                                  batch_size, n_steps)
-        elif program is None or program.key != _program_key(
-                self, state, corpus, knn, arrays, draws, batch_size):
-            state.step_program = None  # the old graph's pool goes first
-            program = state.step_program = StepProgram(
-                self, state, corpus, knn, arrays, draws, batch_size, n_steps)
-        losses = []
-        for j in range(0, n_steps, program.capacity):
-            n = min(program.capacity, n_steps - j)
-            losses.append(program.run(
-                arrays, {name: d[j:j + n] for name, d in draws.items()},
-                table[j:j + n], seg_start + j, n, graphed))
-        state.opt_state.advance(n_steps)
-        state.step += n_steps
-        return state, torch.cat(losses)
+        key = _program_key(self, state, corpus, knn, arrays, draws,
+                           batch_size)
+        program = held_program(state, key, graphed, lambda: StepProgram(
+            key, self, state, corpus, knn, arrays, draws, batch_size,
+            n_steps))
+        return run_chunks(state, program, arrays, draws, table, seg_start,
+                          n_steps, graphed)
 
     # -- evaluation -------------------------------------------------------------
     def _evaluate(self, params, corpus, val, ground_truth, probe_train,
@@ -593,8 +618,10 @@ class Trainer(abc.ABC):
         ``.state`` file of either package.  ``mesh``: a 1-D
         :class:`~nlsh_tpu_torch.parallel.mesh.Mesh`; each step's batch is
         then split over its entries with the gradients ``pmean``-ed
-        (:func:`nlsh_tpu_torch.parallel.dp.build_dp_segment_runner`), and
-        the state lives on its first device (``device`` is not used)."""
+        (:func:`nlsh_tpu_torch.parallel.dp.build_dp_segment_runner`; on a
+        mesh of one card every step is a replay of one captured graph,
+        held on the state as the meshless step's is), and the state lives
+        on its first device (``device`` is not used)."""
         if mesh is not None:
             from nlsh_tpu_torch.parallel.dp import build_dp_segment_runner
 
