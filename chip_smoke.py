@@ -46,8 +46,14 @@ queries, recall@10 against the committed exact ground truth):
   pool; ``ensemble_fused`` (after ``ensemble_guard``) does the same for
   ``_fused_mt_serve`` on the windowed engine at the batch's calibration
   and on the fixed-cap engine, and forces the guard: at a starved
-  calibration the replay reads the batch's need with its ids and serves
-  it again at the static bound, with the calibrated serve's answer.
+  calibration ONE replay, whose conditional node takes the static-bound
+  branch on the card with no host sync, gives the calibrated serve's
+  answer (the two-branch graph's pool beside the static graph's).
+  The gather engine serves in one replayed graph per batch too:
+  ``parity`` (the single table, full size, and the 65,536-row slice),
+  ``ensemble_parity``, ``updates`` and ``sharded`` hold each replay to
+  its eager body bit for bit, with eager and replayed passes, busy
+  shares, the graph's pool and capture seconds.
 
 Then the serving process, on the same workload, each phase one line:
 
@@ -83,14 +89,17 @@ Then offline evaluation, each phase one line, timed with
 * ``eval_flip``: ``cli.evaluate.run_sweep`` on the grouped engine (K1),
   flip probes 1..16 at the largest bucket's probe budget (no bucket
   cut): every (candidates, recall) pair within 0.01 / 0.001 of the JAX
-  package's exact-f32 CPU values (``eval_anchor.py``);
+  package's exact-f32 CPU values (``eval_anchor.py``); the sweep replays
+  one graph for every value (``sweep_step``), held to its eager body
+  (``sweep_body``) at every value, with ms per value of each;
 * ``eval_sample``: the reference's own sweep, sampled probes 1..100 (seed
   0) on the grouped engine: the curve, ``sweep_s`` and ms per value; one
   probe equals ``eval_flip``'s, candidates never fall, recall(100) >=
   recall(1); on the same raw codes at 1, 16 and 100 probes the windowed
   (K3), fixed-cap (K5) and gather engines give the grouped engine's
   candidates and its ids on >= 0.999 of the slots; each engine's ms per
-  value at 100 probes, and K5's whole call on those 100 probes' events;
+  value at 100 probes, eager and replayed, and K5's whole call on those
+  100 probes' events;
 * ``eval_ensemble``: ``run_sweep_multitable`` on the 8-table params,
   flip, 1..4 probes per table, windowed engine (K3), against the JAX
   package's CPU values;
@@ -1048,19 +1057,60 @@ def phase_kernel_times(idx, queries: np.ndarray) -> dict:
     return out
 
 
+def _gather_body_of(idx, kw, dim: int = 100):
+    """An ``Indexer``'s gather body (``body(q, None)``: flip probes) at the
+    query chunk its serve takes, and that chunk."""
+    from nlsh_tpu_torch.index.indexer import _gather_body
+    from nlsh_tpu_torch.index.query import default_query_chunk
+
+    chunk = default_query_chunk(kw["hash_times"], idx.probe_budget, dim)
+    return _gather_body(idx.hashing, idx.table, idx.corpus,
+                        probe_budget=idx.probe_budget, metric=idx.metric,
+                        query_chunk=chunk, **kw), chunk
+
+
+def _gather_serve_replay(what: str, idx, q, kw) -> dict:
+    """An ``Indexer``'s gather engine replayed (one graph per batch:
+    hash, the chunk loop, pack) against its body run eagerly, bit for
+    bit, with both passes and busy shares, the pool beside the chunk's
+    ``_GATHER_BUDGET_BYTES`` and the capture seconds
+    (:func:`_serve_replay`)."""
+    from nlsh_tpu_torch.index.query import _GATHER_BUDGET_BYTES
+
+    body, chunk = _gather_body_of(idx, kw, q.shape[1])
+    out = _serve_replay(what, lambda: idx.query_async(q, **kw), body, q,
+                        idx._graphs)
+    out.update(query_chunk=chunk, chunks=-(-q.shape[0] // chunk),
+               gather_budget_mib=_GATHER_BUDGET_BYTES / 2 ** 20)
+    return out
+
+
 def phase_parity(corpus, queries, idx, ids_k1) -> dict:
     """Grouped vs gather on a 65,536-row slice (cosine, euclidean; the
-    bench's 0.98 gate), and the full serve with K1 vs the plain scorer."""
+    bench's 0.98 gate), each gather serve a replayed graph held to its
+    eager body bit for bit; the full serve with K1 vs the plain scorer;
+    and the gather engine on the full single table (10,000 queries, 16
+    flip probes, cap 512): replay vs eager body, both passes, busy
+    shares, the graph's pool and capture seconds, ids vs K1's."""
+    import torch
+
     from nlsh_tpu_torch.index import Indexer
 
     out = {}
     hashing = idx.hashing
+    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
     for metric in ("cosine", "euclidean"):
         small = Indexer(hashing, corpus[:SLICE_ROWS], device=DEVICE,
                         metric=metric, engine="gather")
         qs = queries[:SLICE_QUERIES]
         g_ids, g_cand = small.query(qs, k=K, hash_times=HASH_TIMES,
                                     probe_mode="flip")
+        q_small = torch.as_tensor(qs, device=DEVICE)
+        packed = small.query_async(q_small, **kw)
+        with _Uncounted(), torch.no_grad():
+            eager = _gather_body_of(small, kw)[0](q_small, None)
+            check(bool(torch.equal(packed, eager)),
+                  f"{metric}: the gather replay differs from its eager body")
         small.engine = "grouped"
         s_ids, s_cand = small.query(qs, k=K, hash_times=HASH_TIMES,
                                     probe_mode="flip")
@@ -1073,7 +1123,15 @@ def phase_parity(corpus, queries, idx, ids_k1) -> dict:
     agree = id_agreement(p_ids, ids_k1)
     check(agree >= 0.999, f"K1 vs plain serve agreement {agree} < 0.999")
     out["full:k1:plain"] = agree
-    emit("parity", **out)
+    idx.engine = "gather"
+    q = torch.as_tensor(queries, device=DEVICE)
+    gather = _gather_serve_replay("single-table gather", idx, q, kw)
+    x_ids, _ = Indexer.fetch(idx.query_async(q, **kw))
+    idx.engine = "grouped"
+    gather["vs_k1"] = id_agreement(x_ids, ids_k1)
+    check(gather["vs_k1"] >= 0.98,
+          f"full gather vs K1 {gather['vs_k1']} < 0.98")
+    emit("parity", card=CARD["nvidia_smi"], gather_full=gather, **out)
     return out
 
 
@@ -1538,7 +1596,11 @@ def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
 def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
     """Windowed with K3 vs its plain scorer (all queries, >= 0.999), vs
     the grouped engine (all queries, >= 0.999, equal candidates), and vs
-    the gather engine (the first 1,000 queries, the bench's 0.98 gate)."""
+    the gather engine (the first 1,000 queries, the bench's 0.98 gate),
+    whose serve is one replayed graph: held to its eager body bit for
+    bit, with both passes, busy shares, the pool and capture seconds."""
+    import torch
+
     kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
     out = {}
     p_ids, p_cand = midx.query(queries, plain=True, **kw)
@@ -1561,8 +1623,14 @@ def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
           f"ensemble windowed vs gather {out['windowed:gather']} < 0.98")
     check(bool((x_cand <= n_cand[:MT_GATHER_QUERIES]).all()),
           "distinct candidates above the summed occupancy")
-    emit("ensemble_parity", gather_queries=MT_GATHER_QUERIES,
-         gather_mean_distinct=float(x_cand.mean()), **out)
+    q_head = torch.as_tensor(head, device=DEVICE)
+    gather = _serve_replay(
+        "ensemble gather", lambda: midx.query_async(q_head, **kw),
+        midx._gather_body(K, MT_HASH_TIMES, "flip"), q_head, midx._graphs)
+    emit("ensemble_parity", card=CARD["nvidia_smi"],
+         gather_queries=MT_GATHER_QUERIES,
+         gather_mean_distinct=float(x_cand.mean()), gather_graph=gather,
+         **out)
     midx.engine = "windowed"
     return out
 
@@ -1570,8 +1638,12 @@ def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
 def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
     """A starved calibration (4 queries, one probe per table): the full
     batch's exact need exceeds it, so the serve must take the static
-    group bound and give the calibrated serve's ids and candidates."""
+    group bound and give the calibrated serve's ids and candidates; the
+    guard's branch is taken on the card inside the replay, which equals
+    the guarded body run eagerly bit for bit."""
     import torch
+
+    from nlsh_tpu_torch.parallel.multitable import _mt_serve_body
 
     g_starved = midx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
     layout = midx._serving_layout()
@@ -1586,6 +1658,13 @@ def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
           "static-bound serve: n_candidates differ from the calibrated serve")
     check(bool(np.array_equal(s_ids, ids)),
           "static-bound serve: ids differ from the calibrated serve")
+    q = torch.as_tensor(queries, device=DEVICE)
+    with _Uncounted(), torch.no_grad():
+        eager = _mt_serve_body(midx.hashings, layout, engine="windowed",
+                               n_rows=midx.n_rows, g_override=g_starved,
+                               **kw)(q, None)
+        check(bool(torch.equal(midx.query_async(q, **kw), eager)),
+              "the starved replay differs from its eager body")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1785,21 +1864,25 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
     """The ensemble's one-dispatch serve (``_fused_mt_serve``, replayed by
     ``MultiTableIndexer.query``) on the windowed engine at the batch's
     own calibration and on the fixed-cap engine: the replay bitwise the
-    eager body (the windowed one's guard row too), recall and summed
-    candidates in the ensemble's windows and equal to the ensemble
-    serve's, the forced guard (a starved calibration: the replay reads
-    the batch's need with its ids and serves it again at the static
-    bound: the same answer), the eager and the replayed pass, the busy
-    shares, ``_fused_mt_serve_batched``'s QPS over the fresh pool and the
-    graphs' pools.  Returns the launch counts, from replays."""
+    eager body, recall and summed candidates in the ensemble's windows
+    and equal to the ensemble serve's, the forced guard (a starved
+    calibration: ONE replay, whose conditional node takes the
+    static-bound branch on the card, gives the calibrated serve's ids and
+    candidates, launches K3 once and makes no host sync), the eager and
+    the replayed pass (and the starved one), the busy shares,
+    ``_fused_mt_serve_batched``'s QPS over the fresh pool and the graphs'
+    pools: the two-branch graph beside the one-branch static graph a
+    starved batch captured before.  Returns the launch counts, from
+    replays."""
     import torch
 
     import bench
     from nlsh_tpu_torch.index import Indexer
     from nlsh_tpu_torch.parallel.multitable import (
+        _fused_mt_serve,
         _fused_mt_serve_batched,
-        _Guarded,
         _mt_serve_body,
+        _windowed_needed,
     )
     from nlsh_tpu_torch.utils.graphs import GraphCache
     from nlsh_tpu_torch.utils.metrics import calculate_recall
@@ -1818,8 +1901,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
                               n_rows=midx.n_rows, g_override=g_cal, **kw)
 
         def replay():
-            res = midx.query_async(q, k=K, **kw)
-            return res.result() if isinstance(res, _Guarded) else res
+            return midx.query_async(q, k=K, **kw)
 
         replay()  # the capture
         pool_mib = midx._graphs.pool_bytes()[-1] / 2 ** 20
@@ -1830,11 +1912,10 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
             eager = body(q, None)
         res = {}
         if g_cal is not None:
-            need = int(eager[-1, 0])
+            need = _windowed_needed(layout, *_flat_probes(midx, queries))
             check(need <= g_cal, f"the batch ({need} groups) does not fit "
                   f"its own calibration ({g_cal})")
             res.update(groups_calibrated=g_cal, groups_needed=need)
-            eager = eager[:-1]
         check(bool(torch.equal(packed, eager)),
               f"fused ensemble {engine}: the replay differs from the eager "
               "body")
@@ -1882,29 +1963,66 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
             batched_graph_pool_mib=graphs.pool_bytes()[0] / 2 ** 20)
         del graphs
         if engine == "windowed":
-            # the forced guard: a starved calibration, the same batch
-            g_starved = midx.calibrate(queries[:4], hash_times=1,
-                                       probe_mode="flip")
-            midx.query_async(q, k=K, **kw).result()  # both captures
-            reset_launches()
-            guarded = midx.query_async(q, k=K, **kw)
-            need = int(guarded.packed[-1, 0])
-            check(isinstance(guarded, _Guarded) and need > g_starved,
-                  f"a batch of {need} groups fit a starved calibration of "
-                  f"{g_starved}")
-            check(bool(torch.equal(guarded.result(), packed)),
-                  "the guard's static-bound serve differs from the "
-                  "calibrated serve")
-            launches.append(read_launches(FUSED_KERNEL[engine]))
-            res["guard"] = {"groups_calibrated": g_starved,
-                            "groups_needed": need, "ids_equal": True,
-                            "n_candidates_equal": True}
+            res["guard"] = _forced_guard(midx, layout, q, queries, packed,
+                                         replay, replay_pass, launches)
+            # the static-bound graph a starved batch captured before the
+            # guard moved into the serve's graph, for its pool
+            static = GraphCache()
+            _fused_mt_serve(midx.hashings, layout, q, k=K, engine=engine,
+                            n_rows=midx.n_rows, graphs=static, **kw)
+            res["guard"].update(
+                calibrated_graph_pool_mib=pool_mib,
+                static_graph_pool_mib=static.pool_bytes()[0] / 2 ** 20,
+                calibrated_plus_static_mib=pool_mib
+                + static.pool_bytes()[0] / 2 ** 20)
+            del static
         cases[engine] = res
     midx.engine = "windowed"
     emit("ensemble_fused", card=CARD["nvidia_smi"],
          n_queries=int(queries.shape[0]), k=K, hash_times=MT_HASH_TIMES,
          **cases)
     return _summed(launches)
+
+
+def _forced_guard(midx, layout, q, queries, packed, replay, replay_pass,
+                  launches: list) -> dict:
+    """A starved calibration (4 queries, one probe per table) of the same
+    batch: the replay's conditional node serves it at the static bound,
+    in ONE replay that reads nothing on the host
+    (``set_sync_debug_mode("error")``) and launches K3 once, with the
+    calibrated serve's answer; the two-branch graph's pool and capture
+    seconds and the starved pass."""
+    import torch
+
+    from nlsh_tpu_torch.parallel.multitable import _windowed_needed
+
+    g_starved = midx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
+    need = _windowed_needed(layout, *_flat_probes(midx, queries))
+    check(need > g_starved, f"a batch of {need} groups fit a starved "
+          f"calibration of {g_starved}")
+    replay()  # the capture: both branches
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded = replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches.append(read_launches(FUSED_KERNEL["windowed"]))
+    n_k3 = launches[-1][FUSED_KERNEL["windowed"]]
+    check(n_k3 == 1, f"the guarded replay counted {n_k3} K3 launches")
+    check(len(midx._graphs) == 1, "the starved serve captured a second graph")
+    check(bool(torch.equal(guarded, packed)),
+          "the guard's static-bound branch differs from the calibrated serve")
+    starved_ms = _pass_ms(replay_pass, FUSED_PASSES)
+    return {"groups_calibrated": g_starved, "groups_needed": need,
+            "ids_equal": True, "n_candidates_equal": True,
+            "replays": 1, "host_syncs": 0,
+            "two_branch_graph_pool_mib":
+                midx._graphs.pool_bytes()[-1] / 2 ** 20,
+            "two_branch_capture_s": midx._graphs.capture_s()[-1],
+            "starved_pass_ms": starved_ms,
+            "starved_median_ms": float(np.median(starved_ms))}
 
 
 # ---------------------------------------------------------------------------
@@ -2252,6 +2370,12 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
     check(vs_full >= 0.999, f"the sample served alone {vs_full} < 0.999")
     idx.engine = "gather"
     g_ids, g_cand = idx.query(qs, **kw)
+    q_sample = torch.as_tensor(qs, device=DEVICE)
+    with _Uncounted():
+        check(bool(torch.equal(idx.query_async(q_sample, **kw),
+                               idx.query_async(q_sample, plain=True, **kw))),
+              "the gather replay (buffer, tombstones) differs from its eager "
+              "body")
     idx.engine = "grouped"
     check(bool(np.array_equal(g_cand, k_cand)), "gather n_candidates")
     vs_gather = id_agreement(g_ids, k_ids)
@@ -2617,27 +2741,85 @@ def _pairs(rows) -> list:
     return [[r["avg_n_candidates"], r["recall"]] for r in rows]
 
 
+def _sweep_replay_vs_eager(what: str, step, body, values) -> dict:
+    """A sweep's replayed step (``step(n)``: one graph for every value)
+    against its body run eagerly at each value, bit for bit; then each
+    one's host ms per value over the values (fetched), and the graph's
+    launches are left out of the tallies the eager runs made."""
+    import torch
+
+    def eager(n):
+        return body(torch.full((), n, dtype=torch.int32, device=DEVICE))
+
+    with _Uncounted(), torch.no_grad():
+        for n in dict.fromkeys(values):
+            check(bool(torch.equal(step(n), eager(n))),
+                  f"{what}: the replay differs from the eager body at {n}")
+
+        def per_value(fn):
+            t0 = time.perf_counter()
+            for n in values:
+                fn(n).cpu()
+            return (time.perf_counter() - t0) * 1e3 / len(values)
+
+        eager_ms = [per_value(eager) for _ in range(2)]
+        replay_ms = [per_value(step) for _ in range(2)]
+    return {"replay_equals_eager": True, "values": len(values),
+            "eager_ms_per_value": eager_ms, "replay_ms_per_value": replay_ms}
+
+
+def _sweep_parts(hashing, c, q, probes: int, probe_mode: str, seed=None):
+    """The table, its probe budget and the raw codes ``run_sweep`` builds
+    (sampled from a generator seeded ``seed``)."""
+    import torch
+
+    from nlsh_tpu_torch.cli import evaluate as ev
+    from nlsh_tpu_torch.index import build_bucket_table, hash_corpus
+
+    table = build_bucket_table(hash_corpus(hashing, c), hashing.n_buckets)
+    gen = None if seed is None else \
+        torch.Generator(device=DEVICE).manual_seed(seed)
+    raw = ev.sample_probe_codes(hashing, q, probes, gen,
+                                probe_mode=probe_mode)
+    return table, max(table.max_count(), 1), raw
+
+
 def phase_eval_flip(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray):
     """``run_sweep`` on the grouped engine (K1), flip probes 1..16, over the
     whole corpus and 10,000 queries with the committed params: every
-    row against the JAX package's CPU values.  Returns the rows and the
-    launches."""
-    from nlsh_tpu_torch.cli.evaluate import run_sweep
+    row against the JAX package's CPU values; then the sweep's replayed
+    step against its eager body at every value, bit for bit, and the ms
+    per value of each.  Returns the rows and the launches."""
+    import torch
+
+    from nlsh_tpu_torch.cli import evaluate as ev
     from nlsh_tpu_torch.utils.profiling import PhaseTimer
 
     timer = PhaseTimer()
     reset_launches()
     with timer("sweep"):
-        rows = run_sweep(load_hashing(), corpus, queries, gt, K,
-                         max_probes=EVAL_FLIP_PROBES, engine="pallas-grouped",
-                         probe_mode="flip", device=DEVICE)
+        rows = ev.run_sweep(load_hashing(), corpus, queries, gt, K,
+                            max_probes=EVAL_FLIP_PROBES,
+                            engine="pallas-grouped", probe_mode="flip",
+                            device=DEVICE)
     launches = read_launches("grouped_scores_topk")
     check(queries.shape[0] == EVAL_FLIP_QUERIES, "eval_flip's queries")
     worst = _sweep_rows_check("eval_flip", rows, EVAL_FLIP, EVAL_FLIP_QUERIES)
-    emit("eval_flip", engine="grouped", n_queries=int(queries.shape[0]),
-         rows=_pairs(rows), max_recall_diff=worst, launches=launches,
+    hashing = load_hashing().to(DEVICE).eval()
+    c = torch.as_tensor(corpus, device=DEVICE)
+    q = torch.as_tensor(queries, device=DEVICE)
+    table, budget, raw = _sweep_parts(hashing, c, q, EVAL_FLIP_PROBES, "flip")
+    args = (table, c, q, raw, K, budget, "cosine", "grouped")
+    timed = _sweep_replay_vs_eager(
+        "eval_flip", ev.sweep_step(*args), ev.sweep_body(*args),
+        range(1, EVAL_FLIP_PROBES + 1))
+    emit("eval_flip", card=CARD["nvidia_smi"], engine="grouped",
+         n_queries=int(queries.shape[0]), rows=_pairs(rows),
+         max_recall_diff=worst, launches=launches,
          launches_per_value=launches["grouped_scores_topk"] / len(rows),
-         sweep_s=timer.totals["sweep"], phases=timer.summary())
+         sweep_s=timer.totals["sweep"],
+         ms_per_value=timer.totals["sweep"] * 1e3 / len(rows),
+         eager_vs_replay=timed, phases=timer.summary())
     return rows, launches
 
 
@@ -2648,8 +2830,9 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     100 probes the windowed (K3), fixed-cap (K5) and gather engines
     against the grouped one: candidates identical, ids on >= 0.999 of
     the slots (``bench.py``'s engine gates), each engine's ms per sweep
-    value at 100 probes, and K5's whole wrapper call on the events of
-    100 probes.  Returns the launches."""
+    value at 100 probes, eager and replayed (one graph per engine, the
+    replay bitwise its eager body), and K5's whole wrapper call on the
+    events of 100 probes.  Returns the launches."""
     import torch
 
     from nlsh_tpu_torch.cli import evaluate as ev
@@ -2684,29 +2867,40 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
         table = build_bucket_table(hash_corpus(hashing, c),
                                    hashing.n_buckets)
     budget = table.max_count()
-    steps, per_value_ms, agree = {}, {}, {}
+    per_value_ms, agree, grouped = {}, {}, {}
+    reset_launches()
+    # one engine's graph at a time: a pool keeps its peak, and the four
+    # sweep graphs at 100 probes together ran the card out of memory
     for engine in ("grouped", "windowed", "fixed", "gather"):
         with timer(f"layout_{engine}"):
-            steps[engine] = ev.sweep_step(table, c, q, raw, K, budget,
-                                          "cosine", engine)
-    reset_launches()
-    for n in EVAL_SAMPLE_CHECKS:
-        ids_g, cand_g = steps["grouped"](n)
-        check(float(np.mean(cand_g.cpu().numpy()))
-              == rows[n - 1]["avg_n_candidates"],
-              f"the sweep's own draw differs from seed 0's at {n} probes")
-        for engine in ("windowed", "fixed", "gather"):
-            ids, cand = steps[engine](n)
-            check(bool(torch.equal(cand, cand_g)),
+            args = (table, c, q, raw, K, budget, "cosine", engine)
+            step, body = ev.sweep_step(*args), ev.sweep_body(*args)
+        for n in EVAL_SAMPLE_CHECKS:
+            packed = step(n)
+            if engine == "grouped":
+                grouped[n] = packed
+                check(float(np.mean(packed[:, -1].cpu().numpy()))
+                      == rows[n - 1]["avg_n_candidates"],
+                      f"the sweep's own draw differs from seed 0's at {n} "
+                      "probes")
+                continue
+            check(bool(torch.equal(packed[:, -1], grouped[n][:, -1])),
                   f"{engine} candidates differ from grouped at {n} probes")
-            a = id_agreement(ids_g.cpu().numpy(), ids.cpu().numpy())
+            a = id_agreement(grouped[n][:, :-1].cpu().numpy(),
+                             packed[:, :-1].cpu().numpy())
             check(a >= 0.999, f"{engine} vs grouped ids {a} at {n} probes")
             agree[f"{engine}_{n}"] = a
+        # the gather engine's value takes ~1 s: time it once each way
+        timed = _sweep_replay_vs_eager(
+            f"eval_sample {engine}", step, body,
+            [EVAL_SAMPLE_PROBES] * (1 if engine == "gather" else 3))
+        per_value_ms[engine] = {
+            "eager": float(np.median(timed["eager_ms_per_value"])),
+            "replay": float(np.median(timed["replay_ms_per_value"]))}
+        del step, body, packed
+        torch.cuda.empty_cache()
     engine_launches = read_launches("windowed_scores_topk",
                                     "bucket_scores_auto")
-    for engine, step in steps.items():
-        per_value_ms[engine] = 1e3 * _timed_passes(
-            lambda: step(EVAL_SAMPLE_PROBES), 3)["median_s"]
 
     # K5 at the sweep's widest events: every query's 100 sampled probes,
     # on the fixed-cap engine's layout
@@ -2730,7 +2924,8 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
                     n_events=int(pv.sum()), event_slots=pid.numel(),
                     cap=lay.cap, live_rows=int(counts.sum()),
                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    emit("eval_sample", engine="grouped", n_queries=int(q.shape[0]),
+    emit("eval_sample", card=CARD["nvidia_smi"], engine="grouped",
+         n_queries=int(q.shape[0]),
          probe_budget=budget, rows=_pairs(rows), sweep_s=timer.totals["sweep"],
          ms_per_value=timer.totals["sweep"] * 1e3 / len(rows),
          ms_per_value_at_100=per_value_ms, agreement=agree,
@@ -2759,9 +2954,11 @@ def phase_eval_ensemble(corpus: np.ndarray, queries: np.ndarray,
     launches = read_launches("windowed_scores_topk")
     check([r["hash_times"] for r in rows] == [1, 2, 3, 4], "ht 1..4")
     worst = _sweep_rows_check("eval_ensemble", rows, EVAL_ENSEMBLE, nq)
-    emit("eval_ensemble", engine="windowed", n_queries=nq, rows=_pairs(rows),
-         max_recall_diff=worst, launches=launches,
-         sweep_s=timer.totals["sweep"], phases=timer.summary())
+    emit("eval_ensemble", card=CARD["nvidia_smi"], engine="windowed",
+         n_queries=nq, rows=_pairs(rows), max_recall_diff=worst,
+         launches=launches, sweep_s=timer.totals["sweep"],
+         ms_per_value=timer.totals["sweep"] * 1e3 / len(rows),
+         phases=timer.summary())
     return launches
 
 
@@ -2821,7 +3018,10 @@ def phase_eval_cli(tmp: str) -> dict:
     merged = {}
     for got in launches.values():
         merged.update(got)
-    emit("eval_cli", lines=out, launches=launches, phases=timer.summary())
+    ms_per_value = {key: sec * 1e3 / len(out[key.rsplit("_", 1)[0]])
+                    for key, sec in timer.totals.items()}
+    emit("eval_cli", card=CARD["nvidia_smi"], lines=out, launches=launches,
+         ms_per_value=ms_per_value, phases=timer.summary())
     return merged
 
 
@@ -3502,13 +3702,14 @@ class _Uncounted:
         qk.KERNEL_LAUNCHES.update(self.kept)
 
 
-def _mesh_replay(what: str, replay, body, q, graphs) -> dict:
-    """A one-card mesh's serve replayed (``replay()``: the packed result
-    of ``query_async``, whose graph is captured) against its body run
-    eagerly on the same batch (``body(q, None)``: flip probes), bit for
-    bit; then the eager and the replayed pass (ms, fetched) and each
-    one's busy share, and the graph's pool.  The eager runs' launches are
-    not counted."""
+def _serve_replay(what: str, replay, body, q, graphs) -> dict:
+    """A serve replayed (``replay()``: the packed result of
+    ``query_async``, whose graph is captured; a one-card mesh's serve or
+    a gather engine's) against its body run eagerly on the same batch
+    (``body(q, None)``: flip probes), bit for bit; then the eager and the
+    replayed pass (ms, fetched) and each one's busy share, and the
+    graph's pool and capture seconds.  The eager runs' launches are not
+    counted."""
     import torch
 
     packed = replay()
@@ -3532,7 +3733,8 @@ def _mesh_replay(what: str, replay, body, q, graphs) -> dict:
             "replay_pass_ms": replay_ms,
             "replay_median_ms": float(np.median(replay_ms)),
             "busy": {"eager": busy_eager, "replay": _busy_share(replay_pass)},
-            "graph_pool_mib": graphs.pool_bytes()[-1] / 2 ** 20}
+            "graph_pool_mib": graphs.pool_bytes()[-1] / 2 ** 20,
+            "capture_s": graphs.capture_s()[-1]}
 
 
 def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
@@ -3548,14 +3750,15 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     grouped engine: recall in the int8 window.  ``save``/``load`` at
     D = 4, and a load on a one-entry mesh refused.  ``build_s``, the
     median of 3 passes and QPS per mesh and engine.  Both meshes repeat
-    one card, so the grouped, windowed and fixed-cap serves replay one
-    captured graph per batch: each replay equals the serve's body run
-    eagerly bit for bit, with the eager and the replayed pass, their busy
-    shares and the graph's pool (:func:`_mesh_replay`).  Returns the
-    launches of the sharded serves (captures' warm-ups and replays)."""
+    one card, so every engine, gather included, replays one captured
+    graph per batch: each replay equals the serve's body run eagerly bit
+    for bit, with the eager and the replayed pass, their busy shares and
+    the graph's pool (:func:`_serve_replay`).  Returns the launches of
+    the sharded serves (captures' warm-ups and replays)."""
     import torch
 
     from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.index.query import default_query_chunk
     from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
@@ -3600,11 +3803,13 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
             row["engines"][engine] = {
                 **res, "median_s": timed["median_s"],
                 "qps": queries.shape[0] / timed["median_s"]}
-            if engine != "gather":
-                row["engines"][engine].update(_mesh_replay(
-                    f"sharded D={d} {engine}",
-                    lambda: idx.query_async(q, **kw),
-                    idx._serve_body(K, HASH_TIMES, "flip"), q, idx._graphs))
+            body = idx._serve_body(K, HASH_TIMES, "flip") \
+                if engine != "gather" else idx._gather_body(
+                    K, HASH_TIMES, "flip", default_query_chunk(
+                        HASH_TIMES, idx.probe_budget, q.shape[1]))
+            row["engines"][engine].update(_serve_replay(
+                f"sharded D={d} {engine}", lambda: idx.query_async(q, **kw),
+                body, q, idx._graphs))
         if d == SHARDS:
             idx.engine = "grouped"
             path = os.path.join(tmp, "sharded.npz")
@@ -3661,7 +3866,7 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     least the exact distinct count.  The windowed and fixed-cap serves
     replay one captured graph per batch: each replay equals the body run
     eagerly bit for bit, with the eager and the replayed pass, their busy
-    shares and the graph's pool (:func:`_mesh_replay`).  Returns the
+    shares and the graph's pool (:func:`_serve_replay`).  Returns the
     launches."""
     import torch
 
@@ -3699,7 +3904,7 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
                        "vs_unsharded": agree, "median_s": timed["median_s"],
                        "qps": queries.shape[0] / timed["median_s"]}
         if engine != "grouped":
-            per[engine].update(_mesh_replay(
+            per[engine].update(_serve_replay(
                 f"table-sharded {engine}", lambda: midx.query_async(q, **kw),
                 midx._mesh_serve_body(K, MT_HASH_TIMES, "flip"), q,
                 midx._graphs))

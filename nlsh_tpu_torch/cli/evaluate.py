@@ -45,6 +45,7 @@ from nlsh_tpu_torch.ops.cuda.query_kernel import BLOCK_ROWS, serving_layout
 from nlsh_tpu_torch.train.base import resolve_device
 from nlsh_tpu_torch.utils.checkpoint import load_model
 from nlsh_tpu_torch.utils.env import get_env
+from nlsh_tpu_torch.utils.graphs import GraphCache
 from nlsh_tpu_torch.utils.metrics import calculate_recall
 
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
@@ -111,14 +112,16 @@ def resolve_engine(engine: str, device: torch.device, metric: str,
     return engine
 
 
-def sweep_step(table, corpus: torch.Tensor, queries: torch.Tensor,
+def sweep_body(table, corpus: torch.Tensor, queries: torch.Tensor,
                raw: torch.Tensor, k: int, probe_budget: int, metric: str,
                engine: str):
-    """The serve of one sweep value on ``engine`` (a resolved name):
-    ``step(n) -> (topk_ids (nq, k), n_candidates (nq,))``, the probes of
-    ``raw`` at or after ``n`` masked down to the hard code (probe 0),
-    deduped, and served on a layout built once, with cap
-    ``probe_budget``, in float32."""
+    """The body of one sweep value on ``engine`` (a resolved name), the
+    JAX package's ``_sweep_step``: ``body(n) -> (nq, k+1)`` int32
+    ``[topk_ids | n_candidates]`` for a 0-d int32 ``n`` on the device, the
+    probes of ``raw`` at or after ``n`` masked down to the hard code
+    (probe 0), deduped, and served on a layout built once, with cap
+    ``probe_budget``, in float32 (every engine at its static group
+    bound, so nothing is read on the host)."""
     if engine == "gather":
         chunk = default_query_chunk(raw.shape[1], probe_budget,
                                     queries.shape[1])
@@ -140,12 +143,33 @@ def sweep_step(table, corpus: torch.Tensor, queries: torch.Tensor,
 
     probe = torch.arange(raw.shape[1], device=raw.device)[None, :]
 
-    @torch.no_grad()
-    def step(n: int):
+    def body(n: torch.Tensor) -> torch.Tensor:
         pid, pv = packing.dedupe_codes(
             torch.where(probe < n, raw, raw[:, :1]))
         topk, _, n_cand = serve(pid, pv)
-        return topk, n_cand
+        return torch.cat([topk, n_cand[:, None]], dim=1)
+
+    return body
+
+
+def sweep_step(table, corpus: torch.Tensor, queries: torch.Tensor,
+               raw: torch.Tensor, k: int, probe_budget: int, metric: str,
+               engine: str):
+    """One sweep on ``engine``: ``step(n) -> (nq, k+1)`` packed
+    ``[topk_ids | n_candidates]`` of :func:`sweep_body` at the Python int
+    ``n``, ONE replayed graph for every value (``n`` is filled on the
+    device into the graph's input, as the JAX package traces it, so all
+    values share one compilation), held in a cache of the step's own and
+    dropped with it; on the CPU the body runs eagerly."""
+    body = sweep_body(table, corpus, queries, raw, k, probe_budget, metric,
+                      engine)
+    graphs = GraphCache()
+    n_dev = torch.zeros((), dtype=torch.int32, device=raw.device)
+
+    @torch.no_grad()
+    def step(n: int) -> torch.Tensor:
+        n_dev.fill_(n)
+        return graphs.run("sweep", body, (n_dev,))
 
     return step
 
@@ -157,10 +181,12 @@ def run_sweep(hashing, corpus, queries, ground_truth, k: int,
               probe_mode: str = "sample", *,
               device, raw_codes=None) -> list[dict]:
     """The single-table sweep: a list of ``{n_probes, avg_n_candidates,
-    recall}`` for ``n_probes = 1..max_probes``.  The probe budget
-    (default) is the largest bucket, so no bucket is cut.  Sampled
-    probes draw from a generator seeded with ``seed`` on ``device``;
-    ``raw_codes`` ``(nq, max_probes)`` replaces the drawn batch."""
+    recall}`` for ``n_probes = 1..max_probes``, one replay of the sweep's
+    graph and one copy of its packed result per value (:func:`sweep_step`,
+    whose graph goes with it at the end).  The probe budget (default) is the
+    largest bucket, so no bucket is cut.  Sampled probes draw from a
+    generator seeded with ``seed`` on ``device``; ``raw_codes`` ``(nq,
+    max_probes)`` replaces the drawn batch."""
     device = resolve_device(device)
     hashing = hashing.to(device).eval()
     corpus = torch.as_tensor(corpus, dtype=torch.float32, device=device)
@@ -181,12 +207,11 @@ def run_sweep(hashing, corpus, queries, ground_truth, k: int,
                       resolve_engine(engine, device, metric))
     results = []
     for n in range(1, max_probes + 1):
-        topk, n_cand = step(n)
-        recall = calculate_recall(ground_truth[:, :k], topk.cpu().numpy(),
+        packed = step(n).cpu().numpy()
+        recall = calculate_recall(ground_truth[:, :k], packed[:, :-1],
                                   np.mean)
         results.append({"n_probes": n,
-                        "avg_n_candidates": float(np.mean(
-                            n_cand.cpu().numpy())),
+                        "avg_n_candidates": float(np.mean(packed[:, -1])),
                         "recall": float(recall)})
     return results
 

@@ -14,8 +14,8 @@ replay.  Engines: ``"grouped"`` (the grouped CUDA kernels K1/K2;
 kernels K3/K4, on an 8-row-aligned layout), ``"fixed"`` (the fixed-cap
 kernel K5, the JAX package's ``"pallas"``, on the cap-aligned layout
 the grouped engine uses) and ``"gather"`` (gather + exact rerank, the
-JAX package's ``"xla"``).  Serving layouts are f32, bf16 or int8
-(per-row or global scale).
+JAX package's ``"xla"``; one replayed graph of :func:`_gather_body`).
+Serving layouts are f32, bf16 or int8 (per-row or global scale).
 """
 
 from __future__ import annotations
@@ -135,6 +135,28 @@ def _serve_body(hashing, layout, full_counts, *, k: int, hash_times: int,
             uniforms=uniforms)
         ids, _, n_cand = serve(layout, queries, probe_ids, probe_valid,
                                full_counts, k=k, plain=plain)
+        return torch.cat([ids, n_cand[:, None]], dim=1)
+
+    return body
+
+
+def _gather_body(hashing, table, corpus, *, k: int, hash_times: int,
+                 probe_mode: str, probe_budget: int, metric: str,
+                 query_chunk: int):
+    """``body(queries, uniforms)`` of one gather serve (the JAX package's
+    jitted ``query_bucket_table``, a ``lax.map`` over query chunks): the
+    probe hash (sampled probes from the given uniforms), the chunk loop
+    of :func:`query_bucket_table` (unrolled by a capture, each chunk's
+    transients reused by the next through the graph's pool) and the pack
+    ``[topk_ids | n_candidates]``, ``(nq, k+1)`` int32."""
+    def body(queries, uniforms):
+        probe_ids, probe_valid = hashing.hash(
+            queries, n_probes=hash_times, probe_mode=probe_mode,
+            uniforms=uniforms)
+        ids, _, n_cand = query_bucket_table(
+            table, corpus, queries, probe_ids, probe_valid, k=k,
+            probe_budget=probe_budget, metric=metric,
+            query_chunk=query_chunk)
         return torch.cat([ids, n_cand[:, None]], dim=1)
 
     return body
@@ -486,15 +508,15 @@ class Indexer:
                     probe_mode: str = "sample", plain: bool = False):
         """Enqueue a multi-probe query on the device without waiting:
         returns a result for :meth:`fetch`, ONE packed ``(nq, k+1)``
-        int32 tensor ``[topk_ids | n_candidates]`` from the grouped,
-        windowed and fixed-cap engines (the replay of :func:`_fused_serve`
-        on the card) and ``(topk_ids, n_candidates)`` from the gather
-        engine.  Sampled probes draw from ``generator`` (default: a fresh
-        one seeded 0 on the index's device).  ``plain=True`` serves the
-        grouped, windowed or fixed-cap engine eagerly with the kernels'
-        plain PyTorch versions (the reference the kernels are checked
-        against).  Inserts are merged and tombstones dropped after the
-        fused serve, as in the JAX package, so an insert captures nothing
+        int32 tensor ``[topk_ids | n_candidates]`` on every engine (on
+        the card the replay of :func:`_fused_serve` on the grouped,
+        windowed and fixed-cap engines, of :func:`_gather_body` on the
+        gather engine).  Sampled probes draw from ``generator`` (default:
+        a fresh one seeded 0 on the index's device).  ``plain=True``
+        serves eagerly, the grouped, windowed or fixed-cap engine with the
+        kernels' plain PyTorch versions (the reference the kernels are
+        checked against).  Inserts are merged and tombstones dropped after
+        the serve, as in the JAX package, so an insert captures nothing
         new and a removal only changes the fetched ``k``.
 
         With tombstones pending (:meth:`remove`) the engine over-fetches
@@ -510,61 +532,63 @@ class Indexer:
         if not m:
             return res
         dead = torch.from_numpy(self._deleted).to(self.device)
-        if isinstance(res, tuple):
-            ids, n_cand = res
-            return _drop_deleted(ids, dead, k), n_cand
         top = _drop_deleted(res[:, :-1].contiguous(), dead, k)
         return torch.cat([top, res[:, -1:]], dim=1)
 
     def _query_raw(self, queries, k: int, hash_times: int, generator,
                    query_chunk, probe_mode: str, plain: bool):
-        """The engine's top ``k`` merged with the fresh-row buffer: packed
-        ``[ids | n_cand]`` from the grouped, windowed and fixed-cap engines
-        (the fused serve, or with ``plain`` its body run eagerly on the
-        plain kernels), ``(ids, n_cand)`` from the gather engine."""
+        """The engine's top ``k`` merged with the fresh-row buffer, packed
+        ``[ids | n_cand]``: the grouped, windowed and fixed-cap engines
+        through the fused serve, the gather engine through one replayed
+        graph of :func:`_gather_body` (keyed like the fused serve, plus
+        the probe budget and the query chunk, the JAX package's static
+        arguments); with ``plain`` either body runs eagerly (the kernels'
+        plain versions)."""
         if generator is None and probe_mode == "sample" and hash_times > 1:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        if self.engine != "gather":
+
+        def uniforms():
+            return self.hashing.probe_uniforms(
+                queries.shape[0], hash_times, generator, probe_mode,
+                device=queries.device)
+
+        if self.engine == "gather":
+            if query_chunk is None:
+                query_chunk = default_query_chunk(
+                    hash_times, self.probe_budget, queries.shape[1])
+            body = _gather_body(
+                self.hashing, self.table, self.corpus, k=k,
+                hash_times=hash_times, probe_mode=probe_mode,
+                probe_budget=self.probe_budget, metric=self.metric,
+                query_chunk=query_chunk)
+            key = ("gather", id(self.hashing), id(self.table),
+                   id(self.corpus), k, hash_times, probe_mode,
+                   self.probe_budget, query_chunk)
+            packed = body(queries, uniforms()) if plain else \
+                self._graphs.run(key, body, (queries, uniforms()),
+                                 holds=(self.hashing, self.table, self.corpus))
+        else:
             args = (self.hashing, self.layout, self.table.counts)
             kw = dict(k=k, hash_times=hash_times, probe_mode=probe_mode,
                       grouped="grouped" if self.engine == "auto"
                       else self.engine)
             if plain:
-                packed = _serve_body(*args, plain=True, **kw)(
-                    queries, self.hashing.probe_uniforms(
-                        queries.shape[0], hash_times, generator, probe_mode,
-                        device=queries.device))
+                packed = _serve_body(*args, plain=True, **kw)(queries,
+                                                              uniforms())
             else:
                 packed = _fused_serve(*args, queries, generator,
                                       graphs=self._graphs, **kw)
-            if self._fresh is None:
-                return packed
-            top, n_cand = _merge_fresh(
-                self.corpus, self._fresh, queries, packed[:, :-1],
-                packed[:, -1], k=k, metric=self.metric)
-            return torch.cat([top, n_cand[:, None]], dim=1)
-        probe_ids, probe_valid = self.hashing.hash(
-            queries, n_probes=hash_times, generator=generator,
-            probe_mode=probe_mode)
-        if query_chunk is None:
-            query_chunk = default_query_chunk(
-                hash_times, self.probe_budget, queries.shape[1])
-        ids, _, n_cand = query_bucket_table(
-            self.table, self.corpus, queries, probe_ids, probe_valid, k=k,
-            probe_budget=self.probe_budget, metric=self.metric,
-            query_chunk=query_chunk)
         if self._fresh is None:
-            return ids, n_cand
-        return _merge_fresh(self.corpus, self._fresh, queries, ids, n_cand,
-                            k=k, metric=self.metric)
+            return packed
+        top, n_cand = _merge_fresh(
+            self.corpus, self._fresh, queries, packed[:, :-1],
+            packed[:, -1], k=k, metric=self.metric)
+        return torch.cat([top, n_cand[:, None]], dim=1)
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
         """A :meth:`query_async` result on the host: ``(topk_ids (nq, k),
-        n_candidates (nq,))`` numpy arrays; a packed result is ONE copy."""
-        if isinstance(result, tuple):
-            ids, n_cand = result
-            return ids.cpu().numpy(), n_cand.cpu().numpy()
+        n_candidates (nq,))`` numpy arrays, from ONE copy."""
         packed = result.cpu().numpy()
         return packed[:, :-1], packed[:, -1]
 

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-The kernels in ``nlsh_tpu_torch/csrc`` have a plain C interface, so they
+The kernels in ``nlsh_tpu_torch/csrc`` (and ``graph_cond.cu``, the
+conditional nodes of a captured graph) have a plain C interface, so they
 compile with ``nvcc`` alone (no PyTorch headers, a few seconds each) and
 bind with ``ctypes``.  :func:`load_library` builds on first use into
 ``build/nlsh_tpu_torch/`` next to the package: one library per source,
@@ -60,6 +61,17 @@ SOURCES = {
                                _I, _P],
         # dtype, out int* (resident blocks per SM)
         "nlsh_bucket_blocks_per_sm": [_I, _P],
+    },
+    "graph_cond.cu": {
+        # stream, pred (a device bool), out unsigned long long[2]: the
+        # handles set to pred and to !pred
+        "nlsh_cond_handles": [_P, _P, _P],
+        # stream, handle, body stream: an IF node, body captured on body
+        "nlsh_cond_begin": [_P, ctypes.c_ulonglong, _P],
+        # body stream
+        "nlsh_cond_end": [_P],
+        # out cudaStream_t*: a non-blocking stream for the bodies
+        "nlsh_cond_stream": [_P],
     },
 }
 

@@ -11,8 +11,9 @@ table; the union of candidates is answered by one of four engines:
   ``t * n_aligned``), dense 8-row-aligned, served by the windowed engine
   (kernels K3/K4) in one call for all tables.  The group table is sized
   by :meth:`MultiTableIndexer.calibrate`'s bound when the batch's exact
-  need (one device reduction) fits it, else by the static bound, so no
-  batch ever drops candidates.
+  need (one device reduction) fits it, else by the static bound, a
+  branch the replayed graph takes on the card, so no batch ever drops
+  candidates.
 * ``"grouped"``: the same flat layout block-aligned, served by the
   grouped engine (K1/K2) with the exact host-computed group bound.
 * ``"fixed"`` (the JAX package's ``"pallas"``): the flat layout
@@ -36,10 +37,10 @@ divisible by its global entry count D) the tables are sharded: entry
 ``d`` holds tables ``[d * lc, (d + 1) * lc)`` (``lc = L / D``) in a flat
 layout of its own on its device and answers its tables' candidates;
 the per-entry lists are gathered and merged with the same duplicate
-collapse (on a mesh of one device, on the windowed and fixed-cap
-engines, in one captured graph per batch shape).  The merged ids equal
-the unsharded ensemble's; ``n_candidates`` is the psum of the per-entry
-counts, so on the gather engine it is an upper bound of the distinct
+collapse (on a mesh of one device, on the windowed, fixed-cap and gather
+engines, in one captured graph per batch shape, as without a mesh).  The
+merged ids equal the unsharded ensemble's; ``n_candidates`` is the psum
+of the per-entry counts, so on the gather engine it is an upper bound of the distinct
 count when one row is a candidate on several entries (exchanging whole
 candidate sets would cost more than the rerank it counts).  Every
 process holds every table's CSR arrays and modules (queries are hashed
@@ -59,7 +60,7 @@ ported.
 from __future__ import annotations
 
 import copy
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,7 +90,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     check_fingerprint,
     corpus_fingerprint,
 )
-from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache
+from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache, cond
 
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
@@ -192,10 +193,12 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
     table's probe hash, the flat probes, the engine's serve of ``k * L``,
     the duplicate collapse and the pack ``[topk_ids | n_candidates]``,
     ``(nq, k+1)`` int32.  A windowed serve at a given ``g_override``
-    (the calibrated count) appends one row: the batch's exact group need
-    in column 0, zeros after (see :class:`_Guarded`)."""
+    (the calibrated count) is GUARDED as the JAX package's is: the
+    batch's exact group need is computed on the device and
+    :func:`~nlsh_tpu_torch.utils.graphs.cond` serves at ``g_override``
+    where it fits, else at the static bound (in a graph: two conditional
+    nodes, decided on the card), so no batch drops candidates."""
     L, n_buckets = len(hashings), hashings[0].n_buckets
-    guard = engine == "windowed" and g_override is not None
 
     def body(queries, uniforms):
         pids, pvalid = _table_probes(hashings, queries, hash_times,
@@ -203,9 +206,18 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
         gp, gv = _flat(pids, pvalid, n_buckets)
         k_fetch = min(k * L, hash_times * L * layout.cap)
         if engine == "windowed":
-            ids, scores, n_cand = serving_query_windowed(
-                layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
-                g_total_override=g_override)
+            def windowed(g):
+                return serving_query_windowed(
+                    layout, queries, gp, gv, layout.counts, k=k_fetch,
+                    row_k=k, g_total_override=g)
+
+            if g_override is None:
+                ids, scores, n_cand = windowed(None)
+            else:
+                need = _windowed_needed_groups(layout, gp, gv)
+                ids, scores, n_cand = cond(need <= g_override,
+                                           lambda: windowed(g_override),
+                                           lambda: windowed(None))
         elif engine == "grouped":
             ids, scores, n_cand = serving_query_grouped(
                 layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
@@ -214,97 +226,35 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
             ids, scores, n_cand = serving_query(layout, queries, gp, gv,
                                                 layout.counts, k=k_fetch)
         merged, _ = MultiTableIndexer._dedupe_topk(ids, scores, k, n_rows)
-        packed = torch.cat([merged, n_cand[:, None]], dim=1)
-        if not guard:
-            return packed
-        need = _windowed_needed_groups(layout, gp, gv).to(torch.int32)
-        tail = torch.cat([need.reshape(1, 1), torch.zeros(
-            (1, k), dtype=torch.int32, device=need.device)], dim=1)
-        return torch.cat([packed, tail])
+        return torch.cat([merged, n_cand[:, None]], dim=1)
 
     return body
-
-
-class _Guarded:
-    """A windowed ensemble serve at a calibrated group count, its guard
-    read with its result.  ``packed`` is ``(nq + 1, k + 1)`` (or ``(R,
-    nq + 1, k + 1)`` for ``R`` batches), the last row of a batch holding
-    its exact group need in column 0; ``static(i)`` serves batch ``i``
-    again at the static bound.  This is the JAX package's ``lax.cond``
-    between the two (``nlsh_tpu/parallel/multitable.py``) with its other
-    branch taken late: the graph cannot branch on the device, so the
-    host reads the need in the same copy that fetches the ids and
-    re-serves a batch that needed more groups than it was given before
-    any of its ids is returned.  No batch loses candidates."""
-
-    def __init__(self, packed: torch.Tensor, g_override: int,
-                 static: Callable[[int], torch.Tensor]):
-        self.packed = packed
-        self.g_override = g_override
-        self.static = static
-
-    def result(self, host: bool = False):
-        """``(nq, k+1)`` (or ``(R, nq, k+1)``) packed ids and candidates:
-        numpy after ONE copy of ids, candidates and needs (``host``), or
-        on the device after one read of the needs."""
-        src = self.packed.cpu() if host else self.packed
-        need = src[..., -1, 0].reshape(-1)
-        if not host:
-            need = need.cpu()
-        out = src[..., :-1, :]
-        over = [i for i, n in enumerate(need.tolist()) if n > self.g_override]
-        if over:
-            out = out.clone()
-            for i in over:
-                redo = self.static(i)
-                redo = redo.cpu() if host else redo
-                if out.dim() == 3:
-                    out[i] = redo
-                else:
-                    out = redo
-        return out.numpy() if host else out.contiguous()
 
 
 def _fused_mt_async(hashings, layout, queries, uniforms, *, k: int,
                     hash_times: int, engine: str, n_rows: int,
                     g_override: int | None, probe_mode: str,
-                    repeats: int | None, graphs: GraphCache):
+                    repeats: int | None, graphs: GraphCache) -> torch.Tensor:
     """The replay (on the CPU: the eager run) of the fused ensemble serve
     of ``queries`` on given ``uniforms``, one batch (``repeats`` None) or
-    ``repeats`` in one graph: the packed result, or a :class:`_Guarded`
-    for a windowed serve at a ``g_override``."""
+    ``repeats`` in one graph: the packed result, final on the device (a
+    guarded windowed batch takes its branch inside the replay)."""
     one = _mt_serve_body(hashings, layout, k=k, hash_times=hash_times,
                          engine=engine, n_rows=n_rows, g_override=g_override,
                          probe_mode=probe_mode)
-
-    def batch(i, qs, us):
-        q = qs[i] if qs.dim() == 3 else torch.roll(qs, i * 1009, 0)
-        return q, None if us is None else us[i]
-
     if repeats is None:
         body = one
     else:
         def body(qs, us):
-            return torch.stack([one(*batch(i, qs, us))
-                                for i in range(repeats)])
+            return torch.stack([
+                one(qs[i] if qs.dim() == 3 else torch.roll(qs, i * 1009, 0),
+                    None if us is None else us[i])
+                for i in range(repeats)])
 
     key = ("mt_serve", tuple(id(h) for h in hashings), id(layout), k,
            hash_times, engine, n_rows, g_override, probe_mode, repeats)
-    packed = graphs.run(key, body, (queries, uniforms),
-                        holds=(*hashings, layout))
-    if engine != "windowed" or g_override is None:
-        return packed
-
-    def static(i):
-        q, u = (queries, uniforms) if repeats is None else \
-            batch(i, queries, uniforms)
-        return _fused_mt_async(hashings, layout, q, u, k=k,
-                               hash_times=hash_times, engine=engine,
-                               n_rows=n_rows, g_override=None,
-                               probe_mode=probe_mode, repeats=None,
-                               graphs=graphs)
-
-    return _Guarded(packed, g_override, static)
+    return graphs.run(key, body, (queries, uniforms),
+                      holds=(*hashings, layout))
 
 
 @torch.no_grad()
@@ -323,21 +273,21 @@ def _fused_mt_serve(hashings, layout, queries,
     ``"grouped"`` or ``"fixed"`` (or the JAX package's names),
     ``n_rows`` the corpus rows.  ``g_override`` sizes the windowed or
     grouped group table; on the windowed engine it is GUARDED: the graph
-    also computes the batch's exact need, and a batch that needs more is
-    served again at the static bound (:class:`_Guarded`; one int read
-    after the replay), so no candidate is lost.  Sampled probes draw one
+    also computes the batch's exact need and serves a batch that needs
+    more at the static bound, a branch taken on the card inside the same
+    replay (:func:`_mt_serve_body`), so no candidate is lost and nothing
+    is read on the host.  Sampled probes draw one
     generator per table from ``generator`` before the replay, as the
     ensemble's eager serve does.  The graph is ``graphs``'s entry
     (default: :data:`nlsh_tpu_torch.utils.graphs.DEFAULT`); CPU queries
     run eagerly."""
     uniforms = _table_uniforms(hashings, queries.shape[0], hash_times,
                                generator, probe_mode, queries.device)
-    out = _fused_mt_async(
+    return _fused_mt_async(
         hashings, layout, queries, uniforms, k=k, hash_times=hash_times,
         engine=_mt_engine(engine), n_rows=n_rows, g_override=g_override,
         probe_mode=probe_mode, repeats=None,
         graphs=DEFAULT if graphs is None else graphs)
-    return out.result() if isinstance(out, _Guarded) else out
 
 
 @torch.no_grad()
@@ -355,8 +305,8 @@ def _fused_mt_serve_batched(hashings, layout, queries,
     ``i`` serves ``torch.roll(queries, i * 1009, 0)``) or a fresh-query
     pool ``(repeats, nq, d)``; repeat ``i``'s sampled probes draw from
     :func:`~nlsh_tpu_torch.index.indexer.repeat_generator` ``(generator,
-    i)``.  A guarded windowed batch that needs more groups than
-    ``g_override`` is served again alone at the static bound."""
+    i)``.  Each guarded windowed repeat takes its own branch on the card,
+    as the JAX package's ``lax.map`` of ``lax.cond`` does."""
     if queries.dim() == 3 and queries.shape[0] != repeats:
         raise ValueError(
             f"fresh-query pool has {queries.shape[0]} batches "
@@ -368,12 +318,11 @@ def _fused_mt_serve_batched(hashings, layout, queries,
                              repeat_generator(generator, i), probe_mode,
                              queries.device) for i in range(repeats)]
     uniforms = None if draws[0] is None else torch.stack(draws)
-    out = _fused_mt_async(
+    return _fused_mt_async(
         hashings, layout, queries, uniforms, k=k, hash_times=hash_times,
         engine=_mt_engine(engine), n_rows=n_rows, g_override=g_override,
         probe_mode=probe_mode, repeats=repeats,
         graphs=DEFAULT if graphs is None else graphs)
-    return out.result() if isinstance(out, _Guarded) else out
 
 
 def _union_rows(row_ids, starts, counts, pids, pvalid, budget: int,
@@ -806,17 +755,18 @@ class MultiTableIndexer:
             for s in range(0, queries.shape[0], chunk)]
         return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
-    def _gather_serve(self, queries, pids, pvalid, k: int):
-        """The gather engine: each entry reranks its tables' candidates;
-        with a mesh the per-entry lists merge by a STABLE sort by id,
-        duplicate ids dropped, the ``k`` nearest kept (lowest flat index
-        first among equal distances), and ``n_candidates`` is the psum
-        of the per-entry distinct counts (an upper bound)."""
+    def _gather_serve(self, queries, pids, pvalid, k: int) -> torch.Tensor:
+        """The gather engine, packed ``(nq, k + 1)`` int32 ``[topk_ids |
+        n_candidates]``: each entry reranks its tables' candidates; with a
+        mesh the per-entry lists merge by a STABLE sort by id, duplicate
+        ids dropped, the ``k`` nearest kept (lowest flat index first among
+        equal distances), and ``n_candidates`` is the psum of the
+        per-entry distinct counts (an upper bound)."""
         outs = [self._gather_query(queries, pids, pvalid, k, t0, t1, dev)
                 for t0, t1, dev in self._entries()]
         if self.mesh is None:
             top, _, nd = outs[0]
-            return top, nd
+            return torch.cat([top, nd[:, None]], dim=1)
         nq = queries.shape[0]
         all_i, all_d = (all_gather([o[i] for o in outs]).permute(
             1, 0, 2).reshape(nq, -1) for i in (0, 1))
@@ -829,7 +779,20 @@ class MultiTableIndexer:
         sd = torch.where(dup | (si < 0), torch.inf, sd)
         top_d, arg = smallest_k(sd, k)
         top = torch.where(torch.isfinite(top_d), torch.gather(si, 1, arg), -1)
-        return top.to(torch.int32), psum([o[2] for o in outs])
+        return torch.cat([top.to(torch.int32),
+                          psum([o[2] for o in outs])[:, None]], dim=1)
+
+    def _gather_body(self, k: int, hash_times: int, probe_mode: str):
+        """``body(queries, uniforms)`` of one gather serve (the JAX
+        package's jitted ``_query_fn``): every table's probes (sampled
+        probes from the given uniforms), each entry's chunk loop, on a mesh
+        the merge and the psum (:meth:`_gather_serve`), packed."""
+        def body(queries, uniforms):
+            pids, pvalid = _table_probes(self.hashings, queries, hash_times,
+                                         probe_mode, uniforms)
+            return self._gather_serve(queries, pids, pvalid, k)
+
+        return body
 
     @torch.no_grad()
     def exact_query_size(self, queries, hash_times: int = 1,
@@ -988,35 +951,49 @@ class MultiTableIndexer:
         ``probe_mode="flip"`` probes each table's ``hash_times`` best-first
         bit-flip buckets.
 
-        Without a mesh the windowed and fixed-cap engines serve through
-        the fused ensemble serve (:func:`_fused_mt_serve`, one replayed
-        graph on the card; the windowed engine at :meth:`calibrate`'s
-        count, guarded, or at the static bound) and return ONE packed
-        ``[topk_ids | n_candidates]`` tensor, or a :class:`_Guarded`
-        whose need is read in the same copy as the ids.  On a mesh of one
-        device (:meth:`Mesh.on_one_device`) the same two engines serve
-        every entry's tables, gather, sum and collapse the duplicates in
-        one graph (:meth:`_mesh_serve_body`; the windowed engine at the
-        static bound, as the mesh always serves it) and return the packed
-        tensor.  The grouped engine keeps its exact group bound read on
-        the host, and the gather engine, meshes over several devices or
-        processes and ``plain=True`` (the kernels' plain PyTorch
-        versions) serve eagerly: they return ``(topk_ids,
+        Without a mesh, or on a mesh of one device
+        (:meth:`Mesh.on_one_device`), the windowed, fixed-cap and gather
+        engines serve in ONE replayed graph on the card and return ONE
+        packed ``[topk_ids | n_candidates]`` tensor, final on the device:
+        without a mesh the windowed and fixed-cap engines through the
+        fused ensemble serve (:func:`_fused_mt_serve`; the windowed engine
+        at :meth:`calibrate`'s count, guarded on the card, or at the
+        static bound), on the mesh every entry's tables, the gather, sum
+        and duplicate collapse (:meth:`_mesh_serve_body`; windowed at the
+        static bound, as the mesh always serves it), and the gather engine
+        its probes, chunk loops and merge (:meth:`_gather_body`).  The
+        gather engine serves eagerly on meshes over several devices or
+        processes and on the lazy corpus's first call, which uploads it,
+        and returns the packed tensor too.  The grouped engine keeps its
+        exact group bound read on the host, and it, meshes over several
+        devices or processes and ``plain=True`` (the kernels' plain
+        PyTorch versions) serve eagerly and return ``(topk_ids,
         n_candidates)``.  On the CPU a graph's body runs eagerly."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
-        if not plain and self.engine in ("windowed", "fixed") and (
-                self.mesh is None or self.mesh.on_one_device()):
+        gather = self.engine == "gather"
+        if not plain and (gather or self.engine in ("windowed", "fixed")) \
+                and (self.mesh is None or self.mesh.on_one_device()) \
+                and not (gather and self.corpus is None):
             uniforms = _table_uniforms(self.hashings, queries.shape[0],
                                        hash_times, generator, probe_mode,
                                        self.device)
+            holds = tuple(self.hashings)
+            if gather:
+                key = ("mt_gather", k, hash_times, probe_mode,
+                       self.probe_budget)
+                return self._graphs.run(
+                    key, self._gather_body(k, hash_times, probe_mode),
+                    (queries, uniforms), holds=(*holds, self.corpus,
+                                                self.row_ids, self.starts,
+                                                self.counts))
             if self.mesh is not None:
                 layouts = tuple(self._entry_layouts())
                 key = ("mt_mesh_serve", tuple(map(id, layouts)), k,
                        hash_times, self.engine, probe_mode)
                 return self._graphs.run(
                     key, self._mesh_serve_body(k, hash_times, probe_mode),
-                    (queries, uniforms), holds=(*self.hashings, *layouts))
+                    (queries, uniforms), holds=(*holds, *layouts))
             return _fused_mt_async(
                 self.hashings, self._serving_layout(), queries, uniforms,
                 k=k, hash_times=hash_times, engine=self.engine,
@@ -1025,19 +1002,18 @@ class MultiTableIndexer:
                 probe_mode=probe_mode, repeats=None, graphs=self._graphs)
         pids, pvalid = self._probes(queries, hash_times, generator,
                                     probe_mode)
-        if self.engine == "gather":
+        if gather:
             return self._gather_serve(queries, pids, pvalid, k)
         return self._query_serving(queries, pids, pvalid, k, plain)
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
         """``(topk_ids (nq, k), n_candidates (nq,))`` as numpy arrays; a
-        packed or guarded result is ONE copy."""
+        packed result is ONE copy."""
         if isinstance(result, tuple):
             ids, n_cand = result
             return ids.cpu().numpy(), n_cand.cpu().numpy()
-        packed = result.result(host=True) if isinstance(result, _Guarded) \
-            else result.cpu().numpy()
+        packed = result.cpu().numpy()
         return packed[:, :-1], packed[:, -1]
 
     def query(self, queries, k: int = 10, hash_times: int = 1,

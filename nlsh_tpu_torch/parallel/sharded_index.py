@@ -14,7 +14,8 @@ as ``lax.top_k`` does; ``n_candidates`` is the :func:`psum` of the
 shards' probed occupancies.  On a mesh of one device the whole serve
 (hash, every shard's serve, merge, sum, pack) is one captured CUDA graph
 replayed per batch, the JAX package's one jitted program
-(``_serving_query_fn``); see :meth:`ShardedIndexer.query_async`.
+(``_serving_query_fn``, and ``_query_fn`` on the gather engine); see
+:meth:`ShardedIndexer.query_async`.
 
 Exactness: a hard hash partitions every shard's rows among the buckets,
 so the union of the shards' candidates is the single-table candidate set,
@@ -476,9 +477,10 @@ class ShardedIndexer:
         windowed and fixed-cap engines serve through one captured graph of
         :meth:`_serve_body` per batch shape, replayed on the card (on the
         CPU the body runs eagerly); the graphs are dropped with the
-        layouts they read.  ``plain=True`` (the kernels' plain PyTorch
-        versions), meshes over several devices or processes, the gather
-        engine and metrics the kernel engines do not serve run
+        layouts they read.  The gather engine (and every metric the
+        kernel engines do not serve) replays a graph of its own there
+        (:meth:`_gather`).  ``plain=True`` (the kernels' plain PyTorch
+        versions) and meshes over several devices or processes run
         eagerly."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
@@ -499,26 +501,50 @@ class ShardedIndexer:
         return self._graphs.run(key, body, (queries, uniforms),
                                 holds=tuple(self._build_layouts()))
 
+    def _gather_body(self, k: int, hash_times: int, probe_mode: str,
+                     query_chunk: int):
+        """``body(queries, uniforms)`` of one gather serve on every shard:
+        the probe hash (sampled probes from the given uniforms), each
+        shard's :func:`query_bucket_table` chunk loop and the merge,
+        packed ``(nq, k + 1)`` int32."""
+        def body(queries, uniforms):
+            probe_ids, probe_valid = self.hashing.hash(
+                queries, n_probes=hash_times, probe_mode=probe_mode,
+                uniforms=uniforms)
+            return self._merge([query_bucket_table(
+                table, rows,
+                *(t.to(dev) for t in (queries, probe_ids, probe_valid)), k=k,
+                probe_budget=self.probe_budget, metric=self.metric,
+                query_chunk=query_chunk)
+                for (_, dev), table, rows in zip(
+                    self._entries(), self._tables, self._corpus_local)], k,
+                largest=False)
+
+        return body
+
     def _gather(self, queries, k: int, hash_times: int, generator,
                 query_chunk, probe_mode: str) -> torch.Tensor:
-        """The gather engine on every shard (the lazy corpus uploaded on
-        first use), merged: packed ``(nq, k + 1)`` int32."""
-        probe_ids, probe_valid = self.hashing.hash(
-            queries, n_probes=hash_times, generator=generator,
-            probe_mode=probe_mode)
+        """The gather engine on every shard, merged: packed ``(nq, k + 1)``
+        int32.  The lazy corpus is uploaded first, on the first call; then
+        on a mesh of one device the serve is one replayed graph of
+        :meth:`_gather_body` per batch shape, keyed as the kernel engines'
+        serves are, plus the probe budget and the query chunk (eagerly on
+        meshes over several devices or processes)."""
         if self._corpus_local is None:  # the lazy corpus, on use
             self._corpus_local = self._shard_rows(self._corpus_host)
         if query_chunk is None:
             query_chunk = default_query_chunk(
                 hash_times, self.probe_budget, queries.shape[1])
-        return self._merge([query_bucket_table(
-            table, rows,
-            *(t.to(dev) for t in (queries, probe_ids, probe_valid)), k=k,
-            probe_budget=self.probe_budget, metric=self.metric,
-            query_chunk=query_chunk)
-            for (_, dev), table, rows in zip(self._entries(), self._tables,
-                                             self._corpus_local)], k,
-            largest=False)
+        uniforms = self.hashing.probe_uniforms(
+            queries.shape[0], hash_times, generator, probe_mode,
+            device=self.device)
+        body = self._gather_body(k, hash_times, probe_mode, query_chunk)
+        if not self.mesh.on_one_device():
+            return body(queries, uniforms)
+        key = ("gather", k, hash_times, probe_mode, self.probe_budget,
+               query_chunk)
+        return self._graphs.run(key, body, (queries, uniforms),
+                                holds=(*self._tables, *self._corpus_local))
 
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:

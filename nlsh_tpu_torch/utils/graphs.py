@@ -39,10 +39,16 @@ body with autograd on and replays it once per step.
 * The warm-up is a real run of the body on the tensors it is given: a
   serve runs it on its static copies and drops the result; the training
   step runs it on its own inputs, so it is the segment's first step.
+* :func:`cond` is ``jax.lax.cond`` inside a body: under a capture it
+  records the two branches as two CUDA-graph conditional (if) nodes, so
+  a replay decides on the card; in the warm-up both branches run (the
+  one not taken needs its kernels loaded too); elsewhere ``pred`` is
+  read on the host and one branch runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 from collections import OrderedDict
 from typing import Callable
@@ -52,6 +58,146 @@ import torch
 from nlsh_tpu_torch.ops.cuda.query_kernel import KERNEL_LAUNCHES
 
 MAX_GRAPHS = 16  # entries a cache keeps, the most recently used
+
+# the memory pool of the graph :func:`capture` is capturing, whether it runs
+# its warm-up, and whether a :func:`cond` routed this thread to that pool
+_capturing_pool: tuple | None = None
+_warming = False
+_rerouted = False
+
+
+def _leaves(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _route_thread_to_pool(device: torch.device) -> None:
+    """Route this thread's allocations, on any stream, to the capturing
+    graph's private pool, once per capture.  The capture routes only its
+    own stream's; a conditional node's body is captured on another
+    stream, in a capture sequence of its own, and its tensors must live
+    in the graph's pool too.  :func:`capture` takes the route down."""
+    global _rerouted
+    if _rerouted:
+        return
+    if _capturing_pool is None:
+        raise RuntimeError("cond on the card runs inside utils.graphs.capture")
+    # torch 2.11 has no thread route; its route takes every stream's
+    route = getattr(torch._C, "_cuda_beginAllocateCurrentThreadToPool",
+                    torch._C._cuda_beginAllocateToPool)
+    torch._C._cuda_endAllocateToPool(device.index, _capturing_pool)
+    route(device.index, _capturing_pool)
+    _rerouted = True
+
+
+def _take_route_down(pool: tuple, ended: bool) -> None:
+    """Undo :func:`_route_thread_to_pool` after a capture: the capture's
+    end takes the route itself unless the capture failed (an
+    invalidated capture raises first), and the pool's extra reference
+    goes."""
+    index = torch.cuda.current_device()
+    if not ended:
+        try:
+            torch._C._cuda_endAllocateToPool(index, pool)
+        except RuntimeError:  # the failed capture's end took it after all
+            pass
+    torch._C._cuda_releasePool(index, pool)
+
+
+_BODY_STREAMS: dict = {}  # device index -> the bodies' stream
+
+
+def _body_stream(device: torch.device, lib) -> torch.cuda.ExternalStream:
+    """The stream a conditional body is captured on, one per device made
+    by ``nlsh_cond_stream``: torch's stream pool hands its streams round,
+    so a pool stream could be the capturing stream itself."""
+    from nlsh_tpu_torch.ops.cuda.query_kernel import _raise_on
+
+    if device.index not in _BODY_STREAMS:
+        raw = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _raise_on(lib.nlsh_cond_stream(ctypes.byref(raw)),
+                      "nlsh_cond_stream")
+        _BODY_STREAMS[device.index] = torch.cuda.ExternalStream(
+            raw.value, device=device)
+    return _BODY_STREAMS[device.index]
+
+
+def _cond_nodes(pred: torch.Tensor, branches, operands) -> tuple:
+    """The branches captured as two IF nodes of the graph being captured
+    (``csrc/graph_cond.cu``: handles set on the card from ``pred`` and
+    ``~pred``, each body captured on a stream of its own); the second
+    branch copies its outputs into the first one's buffers."""
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+    from nlsh_tpu_torch.ops.cuda.query_kernel import _raise_on
+
+    lib = load_library()
+    device = pred.device
+    _route_thread_to_pool(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    handles = (ctypes.c_ulonglong * 2)()
+    _raise_on(lib.nlsh_cond_handles(ctypes.c_void_p(stream),
+                                    ctypes.c_void_p(pred.data_ptr()),
+                                    handles), "nlsh_cond_handles")
+    body = _body_stream(device, lib)
+    outs, first = [], None
+    for handle, fn in zip(handles, branches):
+        counted = dict(KERNEL_LAUNCHES)
+        _raise_on(lib.nlsh_cond_begin(ctypes.c_void_p(stream), handle,
+                                      ctypes.c_void_p(body.cuda_stream)),
+                  "nlsh_cond_begin")
+        try:
+            with torch.cuda.stream(body):
+                out = _leaves(fn(*operands))
+                for dst, src in zip(outs[0] if outs else (), out):
+                    dst.copy_(src)
+        finally:
+            ended = lib.nlsh_cond_end(ctypes.c_void_p(body.cuda_stream))
+        _raise_on(ended, "nlsh_cond_end")
+        outs.append(out)
+        if first is None:
+            first = {name: n - counted.get(name, 0)
+                     for name, n in KERNEL_LAUNCHES.items()}
+        else:  # a replay runs one branch: keep the larger count
+            for name, n in KERNEL_LAUNCHES.items():
+                extra = n - counted.get(name, 0)
+                KERNEL_LAUNCHES[name] = n - min(extra, first.get(name, 0))
+    return outs[0]
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
+         *operands):
+    """``true_fn(*operands)`` where the 0-d bool ``pred`` holds, else
+    ``false_fn(*operands)``: the counterpart of ``jax.lax.cond``.  Both
+    branches return tensors (or tuples of tensors) of the same shapes and
+    dtypes.
+
+    * Under :func:`capture` on the card the branches become two CUDA-graph
+      conditional IF nodes, one on ``pred`` and one on ``~pred`` (CUDA's
+      IF-ELSE node needs 12.8), built through CUDA's own API
+      (``csrc/graph_cond.cu``; the card's torch has no
+      ``CUDAGraph.begin_capture_to_if_node``).  Each body is captured on
+      a stream of its own made current for it, so the kernels' wrappers,
+      which launch on the current stream, land in it; its tensors go to
+      the graph's pool.  The second branch copies its outputs into the first
+      one's buffers, which the rest of the graph reads.  A replay counts,
+      per kernel, the larger of the two branches' launches (one of them
+      runs; the callers' branches launch the same kernels).
+    * In :func:`capture`'s warm-up both branches run and their outputs
+      are merged with ``torch.where`` on the card: no host read, and the
+      branch not taken has its kernels built, loaded and their attributes
+      set before the capture.
+    * Otherwise (CPU tensors, eager runs) ``pred`` is read on the host
+      and one branch runs."""
+    pred = pred.reshape(()).to(torch.bool)
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        out = _cond_nodes(pred.contiguous(), (true_fn, false_fn), operands)
+    elif pred.is_cuda and _warming:
+        a, b = _leaves(true_fn(*operands)), _leaves(false_fn(*operands))
+        out = tuple(torch.where(pred, x, y) for x, y in zip(a, b))
+    else:
+        out = _leaves(true_fn(*operands) if bool(pred)
+                      else false_fn(*operands))
+    return out if len(out) > 1 else out[0]
 
 
 class Graph:
@@ -103,6 +249,11 @@ class GraphCache:
         graph's private pool after its capture."""
         return [e.pool_bytes for e in self._entries.values()]
 
+    def capture_s(self) -> list[float]:
+        """Each entry's host seconds of warm-up and capture, in the order
+        of :meth:`pool_bytes`."""
+        return [e.capture_s for e in self._entries.values()]
+
     def run(self, key, body: Callable, inputs: tuple, holds: tuple = ()):
         """``body(*inputs)`` (a tensor or a tuple of tensors; ``None``
         inputs pass through) as a replay of the graph captured for ``key``
@@ -136,33 +287,47 @@ class GraphCache:
 
 def capture(body: Callable, static: tuple, device: torch.device,
             holds: tuple = (), grad: bool = False) -> Graph:
-    """Run ``body(*static)`` once on a side stream (the warm-up), then
-    capture it into a graph over the same ``static`` tensors, which the
-    caller fills before each replay; a failed capture raises.  Both run
-    under ``no_grad``, or with autograd on where ``grad`` (a training
-    step)."""
+    """Run ``body(*static)`` once on a side stream (the warm-up, both
+    branches of every :func:`cond`), then capture it into a graph over
+    the same ``static`` tensors, which the caller fills before each
+    replay; a failed capture raises.  Both run under ``no_grad``, or with
+    autograd on where ``grad`` (a training step)."""
+    global _capturing_pool, _warming, _rerouted
     t0 = time.perf_counter()
     with torch.cuda.device(device), torch.set_grad_enabled(grad):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            body(*static)
+            _warming = True
+            try:
+                body(*static)
+            finally:
+                _warming = False
         torch.cuda.current_stream(device).wait_stream(side)
         counted = dict(KERNEL_LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        # the graph's private pool, by a handle a cond can name mid-capture
+        pool = torch.cuda.graph_pool_handle()
+        ended = False
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
+                _capturing_pool = pool
                 out = body(*static)
+            ended = True
         finally:
+            _capturing_pool = None
+            if _rerouted:  # a cond routed this thread to the graph's pool
+                _rerouted = False
+                _take_route_down(pool, ended)
             launches = {name: KERNEL_LAUNCHES[name] - n
                         for name, n in counted.items()
                         if KERNEL_LAUNCHES[name] != n}
             KERNEL_LAUNCHES.update(counted)  # the capture ran nothing
-        pool, index = tuple(graph.pool()), torch.cuda.current_device()
+        index = torch.cuda.current_device()
         pool_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if seg["device"] == index
-            and tuple(seg.get("segment_pool_id", ())) == pool)
+            and tuple(seg.get("segment_pool_id", ())) == tuple(pool))
         torch.cuda.synchronize(device)
     outputs = out if isinstance(out, tuple) else (out,)
     return Graph(graph, static, outputs, launches, pool_bytes, holds,

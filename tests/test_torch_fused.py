@@ -113,8 +113,7 @@ def test_indexer_fused_path_matches_its_eager_serve(engine):
     a fresh-row buffer (merged after the fused serve) and with
     tombstones (the over-fetched ``k + 64`` is a new graph key; the drop
     follows the serve).  ``query_async`` returns the packed tensor (and so
-    does ``plain=True``); ``fetch`` takes it and the gather engine's
-    tuple."""
+    do ``plain=True`` and the gather engine); ``fetch`` takes it."""
     queries, _, ti = _pair(engine, False, seed=6)
     extra = queries[:20] + np.float32(1 / 64)  # nearer than any corpus row
 
@@ -142,7 +141,7 @@ def test_indexer_fused_path_matches_its_eager_serve(engine):
     assert len(ti._graphs) == 0  # CPU tensors run the body eagerly
     ti.engine = "gather"
     res = ti.query_async(queries, k=K, hash_times=P, probe_mode="flip")
-    assert isinstance(res, tuple)
+    assert torch.is_tensor(res) and res.shape == (len(queries), K + 1)
     assert (Indexer.fetch(res)[0] == ids).mean() >= 0.98
 
 

@@ -5,10 +5,11 @@ kernels on the CPU, where the body runs eagerly) against the JAX
 package's (Pallas in interpret mode) on the same numpy inputs and the
 same stacked params, bitwise at flip probes: the windowed engine at a
 calibrated group count (the JAX ``lax.cond``'s first branch), at a
-starved one (the guard re-serves at the static bound: the JAX package's
-other branch) and at the static bound, and the fixed-cap engine, one
-batch and a fresh-query pool.  Then ``MultiTableIndexer.query`` through
-the fused serve against its eager ``plain=True`` serve.  The card runs
+starved one (the body's own ``cond`` takes the static bound: the JAX
+package's other branch) and at the static bound, and the fixed-cap
+engine, one batch and a fresh-query pool.  Then
+``MultiTableIndexer.query`` through the fused serve against its eager
+``plain=True`` serve.  The card runs
 the same paths as replays in ``chip_smoke.py`` (``ensemble_fused``)."""
 
 import jax
@@ -31,7 +32,7 @@ from nlsh_tpu_torch.parallel.multitable import (
     _fused_mt_async,
     _fused_mt_serve,
     _fused_mt_serve_batched,
-    _Guarded,
+    _windowed_needed_groups,
 )
 from nlsh_tpu_torch.utils.checkpoint import stacked_params_from_jax
 from nlsh_tpu_torch.utils.graphs import GraphCache
@@ -84,36 +85,44 @@ def _serve_both(jm, tm, jh, stacked, queries, engine, j_engine, g):
 def test_fused_mt_serve_windowed_matches_jax_and_guards():
     """Windowed at the calibrated count (the batch fits: the JAX
     ``lax.cond``'s first branch) bitwise the JAX package's; at the static
-    bound and at a starved count (the need exceeds it: served again at
-    the static bound, the JAX package's other branch) the same answer.
-    (``calibrate`` itself is held to the JAX package's in
+    bound and at a starved count (the need exceeds it: the body's
+    ``cond`` serves at the static bound, the JAX package's other branch)
+    the same answer, bitwise the JAX package's starved serve too.  The
+    guarded result is final: ``(nq, k+1)``, no need row.  (``calibrate``
+    itself is held to the JAX package's in
     ``tests/test_torch_multitable.py``.)"""
     queries, jh, stacked, pair = _ensemble(seed=2)
     jm, tm = pair("windowed", "pallas-windowed")
     g_cal = tm.calibrate(queries, hash_times=P, probe_mode="flip")
     answer = _serve_both(jm, tm, jh, stacked, queries, "windowed",
                          "pallas-windowed", g_cal)
+    np.testing.assert_array_equal(
+        _serve_both(jm, tm, jh, stacked, queries, "windowed",
+                    "pallas-windowed", STARVED), answer)
     for g in (None, STARVED):
         np.testing.assert_array_equal(_fused_mt_serve(
             tm.hashings, tm._serving_layout(), torch.from_numpy(queries),
             k=K, hash_times=P, engine="pallas-windowed", n_rows=tm.n_rows,
             g_override=g, probe_mode="flip").numpy(), answer)
-    # the guard read the batch's need with the ids, and it did not fit
+    # the batch's need did not fit the starved count: the other branch
+    gp, gv = tm._flat_probes(*tm._probes(torch.from_numpy(queries),
+                                         hash_times=P, probe_mode="flip"))
+    need = int(_windowed_needed_groups(tm._serving_layout(), gp, gv))
+    assert STARVED < need <= g_cal
     guarded = _fused_mt_async(
         tm.hashings, tm._serving_layout(), torch.from_numpy(queries), None,
         k=K, hash_times=P, engine="windowed", n_rows=tm.n_rows,
         g_override=STARVED, probe_mode="flip", repeats=None,
         graphs=GraphCache())
-    assert isinstance(guarded, _Guarded)
-    assert guarded.packed.shape == (len(queries) + 1, K + 1)
-    assert STARVED < int(guarded.packed[-1, 0]) <= g_cal
-    np.testing.assert_array_equal(guarded.result(host=True), answer)
+    assert torch.is_tensor(guarded)
+    assert guarded.shape == (len(queries), K + 1)
+    np.testing.assert_array_equal(guarded.numpy(), answer)
 
 
 def test_fused_mt_serve_fixed_and_batched_match_jax():
     """Fixed-cap, one batch and a fresh-query pool of 3, bitwise the JAX
-    package's; a guarded windowed pool re-serves each repeat that does
-    not fit; a pool of the wrong length raises."""
+    package's; a guarded windowed pool takes each repeat's own branch; a
+    pool of the wrong length raises."""
     queries, jh, stacked, pair = _ensemble(seed=3)
     jm, tm = pair("fixed", "pallas")
     _serve_both(jm, tm, jh, stacked, queries, "fixed", "pallas", None)
@@ -160,7 +169,8 @@ def test_ensemble_query_fused_path_matches_its_eager_serve(engine):
     """``MultiTableIndexer.query`` through the fused serve against
     ``plain=True``: flip and default-seeded sampled probes, the windowed
     engine uncalibrated, calibrated and starved; ``query_async`` returns
-    the packed tensor or the guarded result, and ``fetch`` takes both."""
+    the final packed tensor in every case (the guard's branch is taken
+    inside the serve), and ``fetch`` takes it and the plain tuple."""
     queries, _, _, pair = _ensemble(seed=4, n=700)
     _, tm = pair(engine, "pallas")
     kw = dict(k=K, hash_times=P)
@@ -178,13 +188,17 @@ def test_ensemble_query_fused_path_matches_its_eager_serve(engine):
     assert torch.is_tensor(res) and res.shape == (len(queries), K + 1)
     if engine == "windowed":
         tm.calibrate(queries, hash_times=P, probe_mode="flip")
-        assert isinstance(tm.query_async(queries, probe_mode="flip", **kw),
-                          _Guarded)
+        assert tm.query_async(queries, probe_mode="flip", **kw).shape == \
+            (len(queries), K + 1)
         for a, b in zip(both(probe_mode="flip"), base):
             np.testing.assert_array_equal(a, b)
         tm.calibrate(queries[:2], hash_times=1, probe_mode="flip")
-        assert tm._g_cal < int(tm.query_async(
-            queries, probe_mode="flip", **kw).packed[-1, 0])
+        gp, gv = tm._flat_probes(*tm._probes(
+            torch.from_numpy(queries), hash_times=P, probe_mode="flip"))
+        assert tm._g_cal < int(_windowed_needed_groups(
+            tm._serving_layout(), gp, gv))
+        starved = tm.query_async(queries, probe_mode="flip", **kw)
+        assert starved.shape == (len(queries), K + 1)
         for a, b in zip(both(probe_mode="flip"), base):
             np.testing.assert_array_equal(a, b)
     assert isinstance(tm.query_async(queries, plain=True, **kw), tuple)
