@@ -12,7 +12,8 @@ power limit line), the kernel build (one ``nvcc`` per source, in
 parallel), K1-K4 and K5/K6 against their plain PyTorch versions on
 synthetic operands (f32, bf16 and int8 corpora), K7 (the int8 block
 probe) on the probe's own operands, then two paths on the bench workload
-(1,183,514 x 100 from ``bench.glove100_workload`` with seed 0, 10,000
+(1,183,514 x 100 from ``nlsh_tpu_torch.data.workloads``'s
+``glove100_workload`` with seed 0, 10,000
 queries, recall@10 against the committed exact ground truth):
 
 * the single table (the committed trained params, 16 flip probes, cap
@@ -25,7 +26,9 @@ queries, recall@10 against the committed exact ground truth):
   to K2's panel; and K5 at a table of 16 random distinct buckets per
   query), and on the per-row int8 layout (grouped K1, fixed-cap K5,
   windowed K3, then one global-scale grouped serve; QPS and the int8
-  times of K1-K4);
+  times of K1-K4), and on the bf16 layout (``bf16``: the grouped serve,
+  K1 on bf16 rows, recall within 0.001 of the port's plain CPU serve,
+  candidates, the layout's GiB, QPS);
 * the L=8 ensemble (the committed 8-table params, 4 flip probes per
   table): ``MultiTableIndexer`` build, ``calibrate`` and the serve on the
   windowed engine (K3; recall, summed and exact candidates, QPS, all
@@ -41,7 +44,7 @@ queries, recall@10 against the committed exact ground truth):
   10 and, for K2 / K4, k = 20) and the per-row int8 grouped engine,
   recall and candidates in their windows, and times the eager and the
   replayed pass, each one's device busy share (``torch.profiler``),
-  ``_fused_serve_batched``'s QPS over ``bench.glove100_fresh_pool(16)``
+  ``_fused_serve_batched``'s QPS over ``workloads.glove100_fresh_pool(16)``
   (16 x 10,000 fresh queries in one replay) and each graph's memory
   pool; ``ensemble_fused`` (after ``ensemble_guard``) does the same for
   ``_fused_mt_serve`` on the windowed engine at the batch's calibration
@@ -247,7 +250,10 @@ kept scores bit for bit at K1's lanes (and K4's K3's).  Then one
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  Needs no
-network and imports nothing of JAX.
+network, and imports nothing of JAX, of the JAX package or of its bench
+(``bench.py``, ``benchmarks/``): the last check looks for them in
+``sys.modules``.  Outside a checkout of the repository it fails before
+any output (the port's package and the committed artifacts are missing).
 """
 
 from __future__ import annotations
@@ -261,17 +267,21 @@ import time
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-CACHE = os.path.join(ROOT, "benchmarks", "artifacts", "bench_cache")
-PARAMS = os.path.join(
-    CACHE, "params_s0_n1183514_d100_q10000_k10_ts131072_v2_4da04f430c.msgpack")
-GT = os.path.join(CACHE, "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz")
-PARAMS_T8 = os.path.join(
-    CACHE, "cfgparams_mthr_glove100_b12_s600_b2048_t8_v2.msgpack")
+from nlsh_tpu_torch.data import workloads as wl
+from nlsh_tpu_torch.data.workloads import id_agreement
+from nlsh_tpu_torch.tools.common import (
+    ARTIFACTS,
+    GT,
+    ROOT,
+    bench_head,
+    bench_index,
+    cuda_ms,
+    flat_flip_probes,
+    flip_probes,
+    load_ensemble,
+    load_hashing,
+)
 
-K = 10
-HASH_TIMES = 16
-CAP = 512
 RECALL_RANGE = (0.7416, 0.7436)      # exact-f32 JAX on the CPU: 0.74264
 N_CAND_RANGE = (4665.0, 4676.0)      # exact-f32 JAX on the CPU: 4670.30
 SCORE_TOL = 1e-5                     # kernel vs plain, unit-scale scores
@@ -280,7 +290,6 @@ SLICE_ROWS, SLICE_QUERIES = 65_536, 512
 DEVICE = "cuda"
 # the L=8 ensemble at 4 flip probes per table; exact-f32 JAX on the CPU:
 # recall@10 0.99211, summed candidates 9539.69, exact query_size 8881.76
-MT_HASH_TIMES = 4
 MT_RECALL_RANGE = (0.9911, 0.9931)
 MT_N_CAND_RANGE = (9535.0, 9545.0)
 MT_QUERY_SIZE_RANGE = (8877.0, 8887.0)
@@ -288,6 +297,12 @@ MT_GATHER_QUERIES = 1000
 # the single table on the per-row int8 layout, grouped engine: the port's
 # plain serve on the CPU gives 0.72406 (tests/test_torch_full.py)
 INT8_RECALL_RANGE = (0.7231, 0.7251)
+# the same table on the bf16 layout, grouped engine: the port's plain
+# serve on the CPU (tests/test_torch_full.py BF16_RECALL; the JAX
+# package's serve gives the same ids at a cut size,
+# tests/test_torch_bench_bf16.py)
+BF16_RECALL = 0.73468
+BF16_RECALL_TOL = 0.001
 TOPK_SRC = "nlsh_tpu_torch/csrc/grouped_topk.cu"
 GROUPED_SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
 BUCKET_SRC = "nlsh_tpu_torch/csrc/bucket_scores.cu"
@@ -339,15 +354,6 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def id_agreement(a: np.ndarray, b: np.ndarray) -> float:
-    """Mean per-query overlap of two top-k id sets (``-1`` = no id),
-    over the ids ``a`` holds (as ``bench._id_agreement``)."""
-    return float(np.mean([
-        len(set(ra[ra >= 0]) & set(rb[rb >= 0])) / max((ra >= 0).sum(), 1)
-        for ra, rb in zip(a, b)
-    ]))
-
-
 def reset_launches() -> None:
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
@@ -393,21 +399,6 @@ def bmm_ms(data, grp_qvecs, grp_block, br: int, reps: int) -> float:
     ms = cuda_ms(lambda: torch.bmm(grp_qvecs, blocks), reps)
     del blocks
     return ms
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` runs, after one
-    warm-up, timed with CUDA events."""
-    import torch
-
-    fn()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def device_ms(fn, reps: int) -> float:
@@ -820,23 +811,11 @@ def phase_int8_probe():
     return launches, times
 
 
-def load_hashing():
-    from nlsh_tpu_torch.models import get_encoder, get_hashing
-    from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
-
-    hashing = get_hashing("MultivariateBernoulli",
-                          get_encoder("siren", 100, [256, 256]), 12)
-    return params_from_jax(hashing, read_msgpack(PARAMS))
-
-
 def phase_index(corpus: np.ndarray):
     import torch
 
-    from nlsh_tpu_torch.index import Indexer
-
     t0 = time.perf_counter()
-    idx = Indexer(load_hashing(), corpus, device=DEVICE, metric="cosine",
-                  probe_budget=CAP)
+    idx = bench_index(corpus)
     layout = idx.layout
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -857,48 +836,38 @@ def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     def serve(k):
-        return idx.query(queries, k=k, hash_times=HASH_TIMES,
+        return idx.query(queries, k=k, hash_times=wl.HASH_TIMES,
                          probe_mode="flip")
 
     reset_launches()
-    ids, n_cand = serve(K)
-    ids20, _ = serve(2 * K)
+    ids, n_cand = serve(wl.K)
+    ids20, _ = serve(2 * wl.K)
     launches = read_launches("grouped_scores_topk", "grouped_scores")
-    check(ids.shape == (queries.shape[0], K) and ids20.shape[1] == 2 * K,
+    check(ids.shape == (queries.shape[0], wl.K) and ids20.shape[1] == 2 * wl.K,
           "result shapes")
     check(bool(((ids >= -1) & (ids < idx.corpus.shape[0])).all()), "id range")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
           f"recall@10 {recall} outside {RECALL_RANGE}")
     check(N_CAND_RANGE[0] <= mean_cand <= N_CAND_RANGE[1],
           f"mean n_candidates {mean_cand} outside {N_CAND_RANGE}")
-    head20 = id_agreement(ids, ids20[:, :K])
+    head20 = id_agreement(ids, ids20[:, :wl.K])
     check(head20 >= 0.999, f"k=20 head vs k=10 agreement {head20} < 0.999")
 
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
-        serve(K)
+        serve(wl.K)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
-    emit("serve", n_queries=int(queries.shape[0]), k=K,
-         hash_times=HASH_TIMES, recall_at_10=recall,
+    emit("serve", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.HASH_TIMES, recall_at_10=recall,
          mean_n_candidates=mean_cand, k20_head_agreement=head20,
          launches=launches, pass_s=times, median_s=med,
          qps=queries.shape[0] / med)
     return ids, n_cand, launches
-
-
-def _probes(idx, queries: np.ndarray):
-    """The single table's queries on the card and their flip probes."""
-    import torch
-
-    q = torch.as_tensor(queries, device=idx.device)
-    with torch.no_grad():
-        pid, pv = idx.hashing.hash(q, n_probes=HASH_TIMES, probe_mode="flip")
-    return q, pid, pv
 
 
 def _row_scale(lay):
@@ -957,14 +926,17 @@ def _grouped_times(lay, q, pid, pv, panel: bool = True) -> dict:
     args = (lay.data, grp_qvecs, grp_block)
     kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
     out = {}
-    k1 = qk.grouped_scores_topk(*args, grp_cnt, K, **kw)
+    k1 = qk.grouped_scores_topk(*args, grp_cnt, wl.K, **kw)
     err = _topk_check("K1", k1,
-                      qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw),
+                      qk.grouped_scores_topk_plain(*args, grp_cnt, wl.K, **kw),
                       relative=lay.metric == "euclidean")
     out["grouped_scores_topk"] = kernel_entry(
-        err, cuda_ms(lambda: qk.grouped_scores_topk(*args, grp_cnt, K, **kw), 20),
-        cuda_ms(lambda: qk.grouped_scores_topk_plain(*args, grp_cnt, K, **kw), 3),
-        bounds.topk_counts(*args, None, grp_cnt, K, lay.br, q.shape[1],
+        err,
+        cuda_ms(lambda: qk.grouped_scores_topk(*args, grp_cnt, wl.K, **kw),
+                20),
+        cuda_ms(lambda: qk.grouped_scores_topk_plain(*args, grp_cnt, wl.K,
+                                                     **kw), 3),
+        bounds.topk_counts(*args, None, grp_cnt, wl.K, lay.br, q.shape[1],
                            kw["norms"], kw["scale_rows"]),
         None, NO_LIBRARY_TOPK)
     shape = {"g_total": g_total, "group_q": 32, "block_rows": lay.br,
@@ -1011,7 +983,7 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
         g_total=g_total, max_sub=lay.cap // lay.br + 1, group_q=qk.GROUP_W,
         block_rows=lay.br)
     args = (lay.data, grp_qvecs, grp_window)
-    topk = (grp_lo, grp_hi, K)
+    topk = (grp_lo, grp_hi, wl.K)
     kw = dict(block_rows=lay.br, norms=lay.norms, scale_rows=_row_scale(lay))
     out = {}
     k3 = qk.windowed_scores_topk(*args, *topk, **kw)
@@ -1051,7 +1023,7 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
 def phase_kernel_times(idx, queries: np.ndarray) -> dict:
     """K1/K2 and their plain versions at the main path's own shapes (the
     grouped prep of all queries): CUDA-event times and max score error."""
-    res = _grouped_times(idx.layout, *_probes(idx, queries))
+    res = _grouped_times(idx.layout, *flip_probes(idx, queries))
     out = res.pop("kernels")
     emit("kernel_times", **res, **out)
     return out
@@ -1098,12 +1070,12 @@ def phase_parity(corpus, queries, idx, ids_k1) -> dict:
 
     out = {}
     hashing = idx.hashing
-    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
     for metric in ("cosine", "euclidean"):
         small = Indexer(hashing, corpus[:SLICE_ROWS], device=DEVICE,
                         metric=metric, engine="gather")
         qs = queries[:SLICE_QUERIES]
-        g_ids, g_cand = small.query(qs, k=K, hash_times=HASH_TIMES,
+        g_ids, g_cand = small.query(qs, k=wl.K, hash_times=wl.HASH_TIMES,
                                     probe_mode="flip")
         q_small = torch.as_tensor(qs, device=DEVICE)
         packed = small.query_async(q_small, **kw)
@@ -1112,13 +1084,13 @@ def phase_parity(corpus, queries, idx, ids_k1) -> dict:
             check(bool(torch.equal(packed, eager)),
                   f"{metric}: the gather replay differs from its eager body")
         small.engine = "grouped"
-        s_ids, s_cand = small.query(qs, k=K, hash_times=HASH_TIMES,
+        s_ids, s_cand = small.query(qs, k=wl.K, hash_times=wl.HASH_TIMES,
                                     probe_mode="flip")
         check(bool((g_cand == s_cand).all()), f"{metric}: n_candidates differ")
         agree = id_agreement(g_ids, s_ids)
         check(agree >= 0.98, f"{metric}: grouped vs gather {agree} < 0.98")
         out[f"{metric}:grouped:gather"] = agree
-    p_ids, _ = idx.query(queries, k=K, hash_times=HASH_TIMES,
+    p_ids, _ = idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                          probe_mode="flip", plain=True)
     agree = id_agreement(p_ids, ids_k1)
     check(agree >= 0.999, f"K1 vs plain serve agreement {agree} < 0.999")
@@ -1145,22 +1117,22 @@ def phase_windowed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
     idx.engine = "windowed"
     layout = idx.layout  # the dense layout's build is not part of the run
     reset_launches()
-    ids, n_cand = idx.query(queries, k=K, hash_times=HASH_TIMES,
+    ids, n_cand = idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                             probe_mode="flip")
-    ids20, n_cand20 = idx.query(queries, k=2 * K, hash_times=HASH_TIMES,
+    ids20, n_cand20 = idx.query(queries, k=2 * wl.K, hash_times=wl.HASH_TIMES,
                                 probe_mode="flip")
     launches = read_launches("windowed_scores_topk", "windowed_scores")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
           f"windowed recall@10 {recall} outside {RECALL_RANGE}")
     check(bool((n_cand == grouped_cand).all() and (n_cand20 == n_cand).all()),
           "windowed n_candidates differ from the grouped engine's")
     agree = id_agreement(grouped_ids, ids)
     check(agree >= 0.999, f"windowed vs grouped agreement {agree} < 0.999")
-    head20 = id_agreement(ids, ids20[:, :K])
+    head20 = id_agreement(ids, ids20[:, :wl.K])
     check(head20 >= 0.999, f"windowed k=20 head vs k=10 {head20} < 0.999")
-    emit("windowed", n_queries=int(queries.shape[0]), k=[K, 2 * K],
-         hash_times=HASH_TIMES, recall_at_10=recall,
+    emit("windowed", n_queries=int(queries.shape[0]), k=[wl.K, 2 * wl.K],
+         hash_times=wl.HASH_TIMES, recall_at_10=recall,
          mean_n_candidates=float(n_cand.mean()),
          windowed_vs_grouped=agree, k20_head_agreement=head20,
          layout_rows=layout.n_rows, align=layout.align, launches=launches)
@@ -1195,13 +1167,13 @@ def phase_fixed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
           "the fixed-cap engine serves the grouped engine's layout")
 
     def serve():
-        return idx.query(queries, k=K, hash_times=HASH_TIMES,
+        return idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                          probe_mode="flip")
 
     reset_launches()
     ids, n_cand = serve()
     launches = read_launches("bucket_scores_auto")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
           f"fixed-cap recall@10 {recall} outside {RECALL_RANGE}")
@@ -1212,7 +1184,8 @@ def phase_fixed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
     agree = id_agreement(grouped_ids, ids)
     check(agree >= 0.999, f"fixed-cap vs grouped agreement {agree} < 0.999")
     timed = _timed_passes(serve, 5)
-    emit("fixed", n_queries=int(queries.shape[0]), k=K, hash_times=HASH_TIMES,
+    emit("fixed", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.HASH_TIMES,
          recall_at_10=recall, mean_n_candidates=mean_cand,
          fixed_vs_grouped=agree, layout_rows=layout.n_rows, cap=layout.cap,
          launches=launches, **timed,
@@ -1328,7 +1301,7 @@ def phase_fixed_kernel_times(idx, queries: np.ndarray):
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
 
     lay = idx.layout
-    q, pid, pv = _probes(idx, queries)
+    q, pid, pv = flip_probes(idx, queries)
     launches, out, live_rows = _fixed_times(lay, q, pid, pv)
     emit("fixed_kernel_times", n_events=pid.numel(), cap=lay.cap,
          d_pad=lay.d_pad, live_rows=live_rows,
@@ -1356,7 +1329,7 @@ def phase_int8(idx, queries: np.ndarray, gt: np.ndarray, f32_cand):
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     def serve():
-        return idx.query(queries, k=K, hash_times=HASH_TIMES,
+        return idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                          probe_mode="flip")
 
     idx.engine, idx.serving_dtype, idx.int8_scale = \
@@ -1370,7 +1343,7 @@ def phase_int8(idx, queries: np.ndarray, gt: np.ndarray, f32_cand):
     reset_launches()
     ids, n_cand = serve()
     launches = {"grouped": read_launches("grouped_scores_topk")}
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1],
           f"int8 recall@10 {recall} outside {INT8_RECALL_RANGE}")
     check(bool((n_cand == f32_cand).all()),
@@ -1379,7 +1352,7 @@ def phase_int8(idx, queries: np.ndarray, gt: np.ndarray, f32_cand):
            "layout_gib": layout.data.numel() / 2 ** 30, "build_s": build_s}
     timed = _timed_passes(serve, 5)
     res["grouped"] = {**timed, "qps": queries.shape[0] / timed["median_s"]}
-    q, pid, pv = _probes(idx, queries)
+    q, pid, pv = flip_probes(idx, queries)
     k12 = _grouped_times(layout, q, pid, pv)
     times = k12.pop("kernels")
     times.update(_fixed_times(layout, q, pid, pv)[1])
@@ -1410,24 +1383,57 @@ def phase_int8(idx, queries: np.ndarray, gt: np.ndarray, f32_cand):
           "global-scale int8 n_candidates differ")
     check(idx.layout.scale.ndim == 0, "global-scale int8 layout")
     res["global"] = {
-        "recall_at_10": float(calculate_recall(gt[:, :K], g_ids, np.mean)),
+        "recall_at_10": float(calculate_recall(gt[:, :wl.K], g_ids, np.mean)),
         "vs_per_row": id_agreement(ids, g_ids)}
     idx.serving_dtype, idx.int8_scale = torch.float32, "per_row"
-    emit("int8", n_queries=int(queries.shape[0]), k=K, hash_times=HASH_TIMES,
+    emit("int8", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.HASH_TIMES,
          scale_mode="per_row", **res, launches=launches,
          grouped_table=k12, windowed_table=k34, kernel_times=times)
     return launches, times
 
 
-def load_ensemble():
-    from nlsh_tpu_torch.models import get_encoder, get_hashing
-    from nlsh_tpu_torch.utils.checkpoint import read_msgpack, stacked_params_from_jax
+def phase_bf16(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> None:
+    """The single table on the bf16 layout, grouped engine, through
+    ``Indexer.query`` (K1 on bf16 rows, f32 queries): recall within
+    ``BF16_RECALL_TOL`` of ``BF16_RECALL``, candidates in ``N_CAND_RANGE``
+    and equal to the f32 serve's per query (the layout's type does not
+    change which rows a bucket holds), the layout's GiB and QPS."""
+    import torch
 
-    def make():
-        return get_hashing("MultivariateBernoulli",
-                           get_encoder("siren", 100, [256, 256]), 12)
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    return stacked_params_from_jax(make, read_msgpack(PARAMS_T8)["hashing"])
+    def serve():
+        return idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
+                         probe_mode="flip")
+
+    idx.engine, idx.serving_dtype = "grouped", torch.bfloat16
+    t0 = time.perf_counter()
+    layout = idx.layout
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(layout.data.dtype == torch.bfloat16, "bf16 layout")
+    reset_launches()
+    ids, n_cand = serve()
+    launches = read_launches("grouped_scores_topk")
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
+    mean_cand = float(n_cand.mean())
+    check(abs(recall - BF16_RECALL) <= BF16_RECALL_TOL,
+          f"bf16 recall@10 {recall} not within {BF16_RECALL_TOL} of "
+          f"{BF16_RECALL}")
+    check(N_CAND_RANGE[0] <= mean_cand <= N_CAND_RANGE[1],
+          f"bf16 mean n_candidates {mean_cand} outside {N_CAND_RANGE}")
+    check(bool((n_cand == f32_cand).all()),
+          "bf16 n_candidates differ from the f32 serve's")
+    timed = _timed_passes(serve, 5)
+    idx.serving_dtype = torch.float32
+    emit("bf16", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.HASH_TIMES,
+         recall_at_10=recall, target=BF16_RECALL, mean_n_candidates=mean_cand,
+         layout_rows=layout.n_rows,
+         layout_gib=layout.data.numel() * layout.data.element_size() / 2 ** 30,
+         build_s=build_s, launches=launches, **timed,
+         qps=queries.shape[0] / timed["median_s"])
 
 
 def phase_ensemble_index(corpus: np.ndarray):
@@ -1454,15 +1460,6 @@ def phase_ensemble_index(corpus: np.ndarray):
     return midx, build_s
 
 
-def _flat_probes(midx, queries: np.ndarray):
-    import torch
-
-    q = torch.as_tensor(queries, device=midx.device)
-    with torch.no_grad():
-        return midx._flat_probes(*midx._probes(q, MT_HASH_TIMES,
-                                               probe_mode="flip"))
-
-
 def _static_groups(layout, gp) -> int:
     """The windowed static group bound of the flat probes ``gp``."""
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
@@ -1481,25 +1478,25 @@ def phase_ensemble_serve(midx, queries: np.ndarray, gt: np.ndarray):
 
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     g_cal = midx.calibrate(queries, **kw)
     layout = midx._serving_layout()
-    gp, gv = _flat_probes(midx, queries)
+    gp, gv = flat_flip_probes(midx, queries)
     override, needed = midx.windowed_group_bound(layout, gp, gv)
     static = _static_groups(layout, gp)
     check(override == g_cal, f"the batch ({needed} groups) does not fit its "
           f"own calibration ({g_cal})")
 
     reset_launches()
-    ids, n_cand = midx.query(queries, k=K, **kw)
+    ids, n_cand = midx.query(queries, k=wl.K, **kw)
     launches = read_launches("windowed_scores_topk")
-    check(ids.shape == (queries.shape[0], K), "ensemble result shape")
+    check(ids.shape == (queries.shape[0], wl.K), "ensemble result shape")
     check(bool(((ids >= -1) & (ids < midx.corpus.shape[0])).all()),
           "ensemble id range")
     for row in ids[:200]:
         real = row[row >= 0]
         check(len(set(real)) == len(real), "duplicate ids after the dedupe")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     size = float(midx.exact_query_size(queries, **kw).mean())
     check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
@@ -1512,12 +1509,13 @@ def phase_ensemble_serve(midx, queries: np.ndarray, gt: np.ndarray):
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
-        midx.query(queries, k=K, **kw)
+        midx.query(queries, k=wl.K, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
-    emit("ensemble_serve", n_queries=int(queries.shape[0]), k=K,
-         hash_times=MT_HASH_TIMES, probe_mode="flip", engine=midx.engine,
+    emit("ensemble_serve", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip",
+         engine=midx.engine,
          recall_at_10=recall, mean_n_candidates=mean_cand,
          mean_exact_query_size=size, groups_calibrated=g_cal,
          groups_static=static, groups_live=needed, launches=launches,
@@ -1531,7 +1529,7 @@ def phase_ensemble_kernel_times(midx, queries: np.ndarray) -> dict:
     score error."""
     import torch
 
-    gp, gv = _flat_probes(midx, queries)
+    gp, gv = flat_flip_probes(midx, queries)
     res = _windowed_times(midx._serving_layout(),
                           torch.as_tensor(queries, device=midx.device), gp,
                           gv, midx._g_cal, panel_reps=5)
@@ -1583,14 +1581,15 @@ def phase_fixed_profile(idx, queries: np.ndarray) -> None:
     of the (10,000, 8,192) scores and the rest, by kernel name."""
     idx.engine = "fixed"
     _profile_passes("fixed_profile", lambda: idx.query(
-        queries, k=K, hash_times=HASH_TIMES, probe_mode="flip"), top=25)
+        queries, k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip"), top=25)
     idx.engine = "grouped"
 
 
 def phase_ensemble_profile(midx, queries: np.ndarray) -> None:
     """``--profile``: 3 ensemble serve passes under ``torch.profiler``."""
     _profile_passes("ensemble_profile", lambda: midx.query(
-        queries, k=K, hash_times=MT_HASH_TIMES, probe_mode="flip"), top=15)
+        queries, k=wl.K, hash_times=wl.ENSEMBLE_HASH_TIMES,
+        probe_mode="flip"), top=15)
 
 
 def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
@@ -1601,7 +1600,7 @@ def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
     bit, with both passes, busy shares, the pool and capture seconds."""
     import torch
 
-    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     out = {}
     p_ids, p_cand = midx.query(queries, plain=True, **kw)
     check(bool((p_cand == n_cand).all()), "K3 vs plain: n_candidates differ")
@@ -1626,7 +1625,8 @@ def phase_ensemble_parity(midx, queries: np.ndarray, ids, n_cand) -> dict:
     q_head = torch.as_tensor(head, device=DEVICE)
     gather = _serve_replay(
         "ensemble gather", lambda: midx.query_async(q_head, **kw),
-        midx._gather_body(K, MT_HASH_TIMES, "flip"), q_head, midx._graphs)
+        midx._gather_body(wl.K, wl.ENSEMBLE_HASH_TIMES, "flip"), q_head,
+        midx._graphs)
     emit("ensemble_parity", card=CARD["nvidia_smi"],
          gather_queries=MT_GATHER_QUERIES,
          gather_mean_distinct=float(x_cand.mean()), gather_graph=gather,
@@ -1647,12 +1647,12 @@ def phase_ensemble_guard(midx, queries: np.ndarray, ids, n_cand) -> dict:
 
     g_starved = midx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
     layout = midx._serving_layout()
-    gp, gv = _flat_probes(midx, queries)
+    gp, gv = flat_flip_probes(midx, queries)
     override, needed = midx.windowed_group_bound(layout, gp, gv)
     check(override is None and needed > g_starved,
           f"a batch of {needed} groups was served on a starved calibration "
           f"of {g_starved}")
-    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     s_ids, s_cand = midx.query(queries, **kw)
     check(bool(np.array_equal(s_cand, n_cand)),
           "static-bound serve: n_candidates differ from the calibrated serve")
@@ -1756,22 +1756,21 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
     candidates in their windows, the eager and the replayed pass (ms,
     fetched), each device's busy share of one pass from
     ``torch.profiler``, ``_fused_serve_batched``'s QPS over
-    ``bench.glove100_fresh_pool(16)`` (one replay, one fetch of 16 x
+    ``workloads.glove100_fresh_pool(16)`` (one replay, one fetch of 16 x
     10,000 queries; its repeat 0 bitwise a single replay of the pool's
     batch 0) and each captured graph's pool.  Returns the launch counts,
     every one from replays: the counts are set to 0 after the capture."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.index import Indexer
     from nlsh_tpu_torch.index.indexer import _fused_serve_batched, _serve_body
     from nlsh_tpu_torch.utils.graphs import GraphCache
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     q = torch.as_tensor(queries, device=idx.device)
-    pool = torch.as_tensor(bench.glove100_fresh_pool(FUSED_REPEATS),
+    pool = torch.as_tensor(wl.glove100_fresh_pool(FUSED_REPEATS),
                            device=idx.device)
-    kw = dict(hash_times=HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.HASH_TIMES, probe_mode="flip")
     launches, cases = [], {}
     for engine, dtype in (("grouped", "float32"), ("windowed", "float32"),
                           ("fixed", "float32"), ("grouped", "int8")):
@@ -1779,8 +1778,9 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
         idx.engine, idx.serving_dtype = engine, getattr(torch, dtype)
         lay = idx.layout
         res, packed = {}, {}
-        for k in (K, 2 * K) if dtype == "float32" and engine in FUSED_PANEL \
-                else (K,):
+        for k in ((wl.K, 2 * wl.K)
+                  if dtype == "float32" and engine in FUSED_PANEL
+                  else (wl.K,)):
             body = _serve_body(idx.hashing, lay, idx.table.counts, k=k,
                                grouped=engine, **kw)
             idx.query_async(q, k=k, **kw)  # the capture
@@ -1788,7 +1788,7 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
                 idx._graphs.pool_bytes()[-1] / 2 ** 20
             reset_launches()
             packed[k] = idx.query_async(q, k=k, **kw)
-            kernel = FUSED_KERNEL[engine] if k == K else FUSED_PANEL[engine]
+            kernel = FUSED_KERNEL[engine] if k == wl.K else FUSED_PANEL[engine]
             launches.append(read_launches(kernel))
             with torch.no_grad():
                 eager = body(q, None)
@@ -1796,8 +1796,8 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
                   f"fused {name} k={k}: the replay differs from the eager "
                   "body")
             res[f"k{k}_launches_per_replay"] = launches[-1][kernel]
-        ids, cand = Indexer.fetch(packed[K])
-        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        ids, cand = Indexer.fetch(packed[wl.K])
+        recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
         mean_cand = float(cand.mean())
         if dtype == "float32":
             check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1]
@@ -1807,7 +1807,7 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
             check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1]
                   and bool((cand == f32_cand).all()),
                   f"fused {name}: recall {recall}, candidates differ")
-        body = _serve_body(idx.hashing, lay, idx.table.counts, k=K,
+        body = _serve_body(idx.hashing, lay, idx.table.counts, k=wl.K,
                            grouped=engine, **kw)
 
         def eager_pass():
@@ -1815,23 +1815,23 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
                 return body(q, None).cpu().numpy()
 
         def replay_pass():
-            return idx.query(q, k=K, **kw)
+            return idx.query(q, k=wl.K, **kw)
 
         eager_ms = _pass_ms(eager_pass, FUSED_PASSES)
         replay_ms = _pass_ms(replay_pass, FUSED_PASSES)
         busy = {"eager": _busy_share(eager_pass),
                 "replay": _busy_share(replay_pass)}
         graphs = GraphCache()
-        single = idx.query_async(pool[0], k=K, **kw).cpu().numpy()
+        single = idx.query_async(pool[0], k=wl.K, **kw).cpu().numpy()
 
         def batched():
             return _fused_serve_batched(
-                idx.hashing, lay, idx.table.counts, pool, k=K,
+                idx.hashing, lay, idx.table.counts, pool, k=wl.K,
                 grouped=engine, repeats=FUSED_REPEATS, graphs=graphs,
                 **kw).cpu().numpy()
 
         first = batched()
-        check(first.shape == (FUSED_REPEATS, queries.shape[0], K + 1)
+        check(first.shape == (FUSED_REPEATS, queries.shape[0], wl.K + 1)
               and bool(np.array_equal(first[0], single)),
               f"fused {name}: batched repeat 0 differs from its single "
               "replay")
@@ -1847,7 +1847,7 @@ def phase_fused(idx, queries: np.ndarray, gt: np.ndarray, f32_cand) -> dict:
         del graphs
     idx.engine, idx.serving_dtype = "grouped", torch.float32
     emit("fused", card=CARD["nvidia_smi"], n_queries=int(queries.shape[0]),
-         k=K, hash_times=HASH_TIMES, **cases)
+         k=wl.K, hash_times=wl.HASH_TIMES, **cases)
     return _summed(launches)
 
 
@@ -1876,7 +1876,6 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
     replays."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.index import Indexer
     from nlsh_tpu_torch.parallel.multitable import (
         _fused_mt_serve,
@@ -1888,20 +1887,20 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     q = torch.as_tensor(queries, device=midx.device)
-    pool = torch.as_tensor(bench.glove100_fresh_pool(FUSED_REPEATS),
+    pool = torch.as_tensor(wl.glove100_fresh_pool(FUSED_REPEATS),
                            device=midx.device)
-    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     launches, cases = [], {}
     for engine in ("windowed", "fixed"):
         midx.engine = engine
         layout = midx._serving_layout()
         g_cal = midx.calibrate(queries, **kw) if engine == "windowed" \
             else None
-        body = _mt_serve_body(midx.hashings, layout, k=K, engine=engine,
+        body = _mt_serve_body(midx.hashings, layout, k=wl.K, engine=engine,
                               n_rows=midx.n_rows, g_override=g_cal, **kw)
 
         def replay():
-            return midx.query_async(q, k=K, **kw)
+            return midx.query_async(q, k=wl.K, **kw)
 
         replay()  # the capture
         pool_mib = midx._graphs.pool_bytes()[-1] / 2 ** 20
@@ -1912,7 +1911,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
             eager = body(q, None)
         res = {}
         if g_cal is not None:
-            need = _windowed_needed(layout, *_flat_probes(midx, queries))
+            need = _windowed_needed(layout, *flat_flip_probes(midx, queries))
             check(need <= g_cal, f"the batch ({need} groups) does not fit "
                   f"its own calibration ({g_cal})")
             res.update(groups_calibrated=g_cal, groups_needed=need)
@@ -1920,7 +1919,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
               f"fused ensemble {engine}: the replay differs from the eager "
               "body")
         ids, cand = Indexer.fetch(packed)
-        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
         mean_cand = float(cand.mean())
         check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1]
               and MT_N_CAND_RANGE[0] <= mean_cand <= MT_N_CAND_RANGE[1],
@@ -1937,7 +1936,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
                 return body(q, None).cpu().numpy()
 
         def replay_pass():
-            return midx.query(q, k=K, **kw)
+            return midx.query(q, k=wl.K, **kw)
 
         eager_ms = _pass_ms(eager_pass, FUSED_PASSES)
         replay_ms = _pass_ms(replay_pass, FUSED_PASSES)
@@ -1947,7 +1946,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
 
         def batched():
             return _fused_mt_serve_batched(
-                midx.hashings, layout, pool, k=K, engine=engine,
+                midx.hashings, layout, pool, k=wl.K, engine=engine,
                 n_rows=midx.n_rows, repeats=FUSED_REPEATS, g_override=g_cal,
                 graphs=graphs, **kw).cpu().numpy()
 
@@ -1968,7 +1967,7 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
             # the static-bound graph a starved batch captured before the
             # guard moved into the serve's graph, for its pool
             static = GraphCache()
-            _fused_mt_serve(midx.hashings, layout, q, k=K, engine=engine,
+            _fused_mt_serve(midx.hashings, layout, q, k=wl.K, engine=engine,
                             n_rows=midx.n_rows, graphs=static, **kw)
             res["guard"].update(
                 calibrated_graph_pool_mib=pool_mib,
@@ -1979,7 +1978,8 @@ def phase_ensemble_fused(midx, queries: np.ndarray, gt: np.ndarray, mt_ids,
         cases[engine] = res
     midx.engine = "windowed"
     emit("ensemble_fused", card=CARD["nvidia_smi"],
-         n_queries=int(queries.shape[0]), k=K, hash_times=MT_HASH_TIMES,
+         n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.ENSEMBLE_HASH_TIMES,
          **cases)
     return _summed(launches)
 
@@ -1997,7 +1997,7 @@ def _forced_guard(midx, layout, q, queries, packed, replay, replay_pass,
     from nlsh_tpu_torch.parallel.multitable import _windowed_needed
 
     g_starved = midx.calibrate(queries[:4], hash_times=1, probe_mode="flip")
-    need = _windowed_needed(layout, *_flat_probes(midx, queries))
+    need = _windowed_needed(layout, *flat_flip_probes(midx, queries))
     check(need > g_starved, f"a batch of {need} groups fit a starved "
           f"calibration of {g_starved}")
     replay()  # the capture: both branches
@@ -2153,13 +2153,13 @@ def phase_persist(idx, midx, corpus, queries, gt, single, ensemble,
     check((back.engine, back.probe_budget, back.metric) ==
           (idx.engine, idx.probe_budget, idx.metric), "restored knobs")
     reset_launches()
-    ids, n_cand = back.query(queries, k=K, hash_times=HASH_TIMES,
+    ids, n_cand = back.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                              probe_mode="flip")
     launches = read_launches("grouped_scores_topk")
     check(bool(np.array_equal(ids, single[0])), "restored serve: ids differ")
     check(bool(np.array_equal(n_cand, single[1])),
           "restored serve: n_candidates differ")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
           f"restored recall@10 {recall} outside {RECALL_RANGE}")
     check(_refuses_changed_tail(
@@ -2178,7 +2178,7 @@ def phase_persist(idx, midx, corpus, queries, gt, single, ensemble,
     midx.save(path)
     save_s = time.perf_counter() - t0
     hashings = load_ensemble()
-    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     with _CountedHashes() as hashes:
         t0 = time.perf_counter()
         mback = MultiTableIndexer.load(path + ".npz", hashings, corpus,
@@ -2194,13 +2194,13 @@ def phase_persist(idx, midx, corpus, queries, gt, single, ensemble,
           "restored ensemble knobs")
     mback.calibrate(queries, **kw)
     reset_launches()
-    ids, n_cand = mback.query(queries, k=K, **kw)
+    ids, n_cand = mback.query(queries, k=wl.K, **kw)
     launches = read_launches("windowed_scores_topk")
     check(bool(np.array_equal(ids, ensemble[0])),
           "restored ensemble serve: ids differ")
     check(bool(np.array_equal(n_cand, ensemble[1])),
           "restored ensemble serve: n_candidates differ")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     size = float(mback.exact_query_size(queries, **kw).mean())
     check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
@@ -2241,7 +2241,7 @@ def phase_host_layout(idx, queries: np.ndarray, ids, n_cand) -> None:
         built = {}
         for mode in ("device", "host"):
             one = Indexer(idx.hashing, idx.corpus, device=DEVICE,
-                          metric=idx.metric, probe_budget=CAP,
+                          metric=idx.metric, probe_budget=wl.CAP,
                           serving_dtype=dtype, layout_mode=mode,
                           table=idx.table)
             torch.cuda.synchronize()
@@ -2272,11 +2272,11 @@ def phase_host_layout(idx, queries: np.ndarray, ids, n_cand) -> None:
             step = float((a - b).abs().max())
             check(step <= 2.0 ** -23, f"host f32 layout differs by {step}")
         h_ids, h_cand = built["host"][0].query(
-            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip")
+            queries, k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
         check(bool(np.array_equal(h_cand, n_cand)),
               f"host layout {name}: n_candidates differ")
         want = ids if dtype == torch.float32 else built["device"][0].query(
-            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip")[0]
+            queries, k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")[0]
         agree = id_agreement(want, h_ids)
         check(agree >= 0.999, f"host layout {name}: ids {agree} < 0.999")
         out[name] = {"device_build_s": built["device"][2],
@@ -2307,9 +2307,9 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
 
     n0 = corpus.shape[0] - UPDATE_HELD_BACK
     idx = Indexer(load_hashing(), corpus[:n0], device=DEVICE, metric="cosine",
-                  probe_budget=CAP)
+                  probe_budget=wl.CAP)
     _ = idx.layout
-    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
 
     def serve():
         return idx.query(queries, **kw)
@@ -2323,7 +2323,7 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
           "n_candidates grows by the buffer's length")
     fresh_share = float((ids_a >= n0).mean())
     check(fresh_share > 0, "no buffered row is among the answers")
-    recall_a = float(calculate_recall(gt[:, :K], ids_a, np.mean))
+    recall_a = float(calculate_recall(gt[:, :wl.K], ids_a, np.mean))
     check(recall_a >= RECALL_RANGE[0], f"recall with the buffer {recall_a}")
     with_buffer = _timed_passes(serve, 3)
 
@@ -2341,14 +2341,14 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
     idx.remove(dead[:UPDATE_REMOVED * 3 // 5])
     idx.remove(dead[UPDATE_REMOVED // 2:])       # overlapping calls: a union
     check(idx.n_deleted == UPDATE_REMOVED, "n_deleted")
-    k_eff = K + (1 << (UPDATE_REMOVED - 1).bit_length())
+    k_eff = wl.K + (1 << (UPDATE_REMOVED - 1).bit_length())
 
     reset_launches()
     ids_r, cand_r = serve()
     launches = read_launches("grouped_scores")
     check(qk.KERNEL_LAUNCHES["grouped_scores_topk"] == 0,
           "the tombstone serve fetches k_eff > 16 per block: K2, not K1")
-    check(ids_r.shape == (queries.shape[0], K), "tombstone serve shape")
+    check(ids_r.shape == (queries.shape[0], wl.K), "tombstone serve shape")
     check(not bool(np.isin(ids_r, dead).any()), "a removed id was answered")
     check(bool((cand_r == cand_a).all()),
           "n_candidates counts tombstoned candidates until compact")
@@ -2390,7 +2390,7 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
     compact_s = time.perf_counter() - t0
     check(idx.n_fresh == 0 and idx.n_deleted == 0
           and idx.corpus.shape[0] == corpus.shape[0]
-          and idx.probe_budget == CAP, "state after compact")
+          and idx.probe_budget == wl.CAP, "state after compact")
     check(int(idx.table.counts.sum()) == corpus.shape[0] - UPDATE_REMOVED,
           "compact drops exactly the removed rows")
     reset_launches()
@@ -2401,7 +2401,7 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
     codes = hash_corpus(idx.hashing, idx.corpus)
     codes[torch.from_numpy(dead).to(DEVICE).long()] = idx.hashing.n_buckets
     scratch = Indexer(idx.hashing, corpus, device=DEVICE, metric="cosine",
-                      probe_budget=CAP,
+                      probe_budget=wl.CAP,
                       table=build_bucket_table(codes, idx.hashing.n_buckets))
     s_ids, s_cand = scratch.query(queries, **kw)
     check(bool(np.array_equal(s_ids, ids_c))
@@ -2409,7 +2409,7 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
           "after compact: not the index built from scratch")
     # not a check: the buffer was scanned whole, the table is only probed
     vs_tomb = id_agreement(ids_r, ids_c)
-    recall_c = float(calculate_recall(gt[:, :K], ids_c, np.mean))
+    recall_c = float(calculate_recall(gt[:, :wl.K], ids_c, np.mean))
     after_compact = _timed_passes(serve, 3)
     emit("updates", n_rows_at_build=n0, added=UPDATE_HELD_BACK,
          removed=UPDATE_REMOVED, removed_among_answers=in_answers,
@@ -2437,10 +2437,10 @@ def phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand):
 
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
 
     def serve():
-        return midx.query(queries, k=K, **kw)
+        return midx.query(queries, k=wl.K, **kw)
 
     def layout_of():
         torch.cuda.synchronize()
@@ -2461,12 +2461,12 @@ def phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand):
           "ensemble fixed-cap: summed n_candidates differ")
     agree = id_agreement(mt_ids, ids)
     check(agree >= 0.999, f"ensemble fixed-cap vs windowed {agree} < 0.999")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(MT_RECALL_RANGE[0] <= recall <= MT_RECALL_RANGE[1],
           f"ensemble fixed-cap recall@10 {recall} outside {MT_RECALL_RANGE}")
     timed = _timed_passes(serve, 3)
-    emit("ensemble_fixed", n_queries=int(queries.shape[0]), k=K,
-         hash_times=MT_HASH_TIMES, recall_at_10=recall,
+    emit("ensemble_fixed", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.ENSEMBLE_HASH_TIMES, recall_at_10=recall,
          mean_n_candidates=float(n_cand.mean()), fixed_vs_windowed=agree,
          cap=lay.cap, layout_rows=lay.n_rows, layout_gib=gib,
          layout_build_s=build_s, launches=launches, **timed,
@@ -2487,15 +2487,16 @@ def phase_ensemble_engines(midx, queries, gt, mt_ids, mt_cand):
     for row in ids[:200]:
         real = row[row >= 0]
         check(len(set(real)) == len(real), "int8: duplicate ids after dedupe")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(MT_INT8_RECALL_RANGE[0] <= recall <= MT_INT8_RECALL_RANGE[1],
           f"ensemble int8 recall@10 {recall} outside {MT_INT8_RECALL_RANGE}")
-    p_ids, _ = midx.query(queries[:MT_GATHER_QUERIES], k=K, plain=True, **kw)
+    p_ids, _ = midx.query(queries[:MT_GATHER_QUERIES], k=wl.K, plain=True,
+                          **kw)
     vs_plain = id_agreement(p_ids, ids[:MT_GATHER_QUERIES])
     check(vs_plain >= 0.999, f"ensemble int8 K3 vs plain {vs_plain} < 0.999")
     timed = _timed_passes(serve, 3)
-    emit("ensemble_int8", n_queries=int(queries.shape[0]), k=K,
-         hash_times=MT_HASH_TIMES, scale_mode=midx.int8_scale,
+    emit("ensemble_int8", n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.ENSEMBLE_HASH_TIMES, scale_mode=midx.int8_scale,
          recall_at_10=recall, mean_n_candidates=float(n_cand.mean()),
          int8_vs_f32_ids=id_agreement(mt_ids, ids), k3_vs_plain=vs_plain,
          groups_calibrated=g_cal, layout_rows=lay.n_rows,
@@ -2545,13 +2546,13 @@ def phase_heads(corpus: np.ndarray, queries: np.ndarray) -> dict:
     from nlsh_tpu_torch.index import Indexer
 
     rows, qs = corpus[:HEAD_ROWS], queries[:HEAD_QUERIES]
-    kw = dict(k=K, hash_times=HEAD_PROBES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=HEAD_PROBES, probe_mode="flip")
     out = {}
     for kind, seed in (("Categorical", 11), ("ProductQuantization", 12)):
         head = _seeded_head(kind, 4096 if kind == "Categorical" else 12, seed)
         check(head.n_buckets == 4096, f"{kind}: n_buckets")
         idx = Indexer(head, rows, device=DEVICE, metric="cosine",
-                      probe_budget=CAP, engine="gather")
+                      probe_budget=wl.CAP, engine="gather")
         x_ids, x_cand = idx.query(qs, **kw)
         idx.engine = "grouped"
         _ = idx.layout
@@ -2584,7 +2585,7 @@ def phase_heads(corpus: np.ndarray, queries: np.ndarray) -> dict:
             out[kind]["flip_probes_distinct_at"] = [16, 256]
         del idx
     emit("heads", n_rows=HEAD_ROWS, n_queries=HEAD_QUERIES,
-         hash_times=HEAD_PROBES, probe_budget=CAP, **out)
+         hash_times=HEAD_PROBES, probe_budget=wl.CAP, **out)
     return {"grouped_scores_topk": sum(
         o["launches"]["grouped_scores_topk"] for o in out.values())}
 
@@ -2644,10 +2645,10 @@ def phase_serve_cli(restored, queries: np.ndarray, tmp: str) -> dict:
     bad_at = 57
     lines.insert(bad_at, '{"id": "bad", "queries": [[1.0, 2.0]]')
     args = cli.nlsh_serve_argparse().parse_args(
-        ["--model_path", base, "--data_id", "synthetic", "-k", str(K),
-         "--hash_times", str(HASH_TIMES), "--probe_mode", "flip"])
+        ["--model_path", base, "--data_id", "synthetic", "-k", str(wl.K),
+         "--hash_times", str(wl.HASH_TIMES), "--probe_mode", "flip"])
     check(args.device == "cuda", "the CLI defaults to the card")
-    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
     restored.query(requests[0], **kw)
     out = io.StringIO()
     reset_launches()
@@ -2668,7 +2669,7 @@ def phase_serve_cli(restored, queries: np.ndarray, tmp: str) -> dict:
     for answer, rows in zip(got, requests):
         ids = np.asarray(answer["topk_ids"], np.int32)
         want_ids, want_cand = restored.query(rows, **kw)
-        check(ids.shape == (rows.shape[0], K)
+        check(ids.shape == (rows.shape[0], wl.K)
               and answer["n_candidates"] == want_cand.tolist(),
               "loop answer: shape or n_candidates")
         exact += bool(np.array_equal(ids, want_ids))
@@ -2741,31 +2742,46 @@ def _pairs(rows) -> list:
     return [[r["avg_n_candidates"], r["recall"]] for r in rows]
 
 
-def _sweep_replay_vs_eager(what: str, step, body, values) -> dict:
-    """A sweep's replayed step (``step(n)``: one graph for every value)
-    against its body run eagerly at each value, bit for bit; then each
-    one's host ms per value over the values (fetched), and the graph's
-    launches are left out of the tallies the eager runs made."""
+def _per_value_ms(fn, values) -> float:
+    """Host ms per value of ``fn(n)`` over ``values``, each fetched."""
+    t0 = time.perf_counter()
+    for n in values:
+        fn(n).cpu()
+    return (time.perf_counter() - t0) * 1e3 / len(values)
+
+
+def _eager_sweep(body, values) -> dict:
+    """A sweep's body run eagerly, left out of the tallies: its result at
+    each value, on the host, and its host ms per value over the values,
+    twice.  Run it before the sweep's graph is captured: the body's peak
+    and the graph's pool (each over 30 GiB at 100 sampled probes on the
+    fixed-cap engine) are then never held on the card at once."""
     import torch
 
     def eager(n):
         return body(torch.full((), n, dtype=torch.int32, device=DEVICE))
 
     with _Uncounted(), torch.no_grad():
-        for n in dict.fromkeys(values):
-            check(bool(torch.equal(step(n), eager(n))),
+        results = {n: eager(n).cpu() for n in dict.fromkeys(values)}
+        ms = [_per_value_ms(eager, values) for _ in range(2)]
+    torch.cuda.empty_cache()
+    return {"results": results, "ms": ms}
+
+
+def _sweep_replay_vs_eager(what: str, step, eager: dict, values) -> dict:
+    """A sweep's replayed step (``step(n)``: one graph for every value)
+    against its body's eager results (:func:`_eager_sweep`), bit for bit;
+    then the replay's host ms per value over the values (fetched), left
+    out of the tallies."""
+    import torch
+
+    with _Uncounted(), torch.no_grad():
+        for n, want in eager["results"].items():
+            check(bool(torch.equal(step(n).cpu(), want)),
                   f"{what}: the replay differs from the eager body at {n}")
-
-        def per_value(fn):
-            t0 = time.perf_counter()
-            for n in values:
-                fn(n).cpu()
-            return (time.perf_counter() - t0) * 1e3 / len(values)
-
-        eager_ms = [per_value(eager) for _ in range(2)]
-        replay_ms = [per_value(step) for _ in range(2)]
+        replay_ms = [_per_value_ms(step, values) for _ in range(2)]
     return {"replay_equals_eager": True, "values": len(values),
-            "eager_ms_per_value": eager_ms, "replay_ms_per_value": replay_ms}
+            "eager_ms_per_value": eager["ms"], "replay_ms_per_value": replay_ms}
 
 
 def _sweep_parts(hashing, c, q, probes: int, probe_mode: str, seed=None):
@@ -2798,7 +2814,7 @@ def phase_eval_flip(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray):
     timer = PhaseTimer()
     reset_launches()
     with timer("sweep"):
-        rows = ev.run_sweep(load_hashing(), corpus, queries, gt, K,
+        rows = ev.run_sweep(load_hashing(), corpus, queries, gt, wl.K,
                             max_probes=EVAL_FLIP_PROBES,
                             engine="pallas-grouped", probe_mode="flip",
                             device=DEVICE)
@@ -2809,10 +2825,11 @@ def phase_eval_flip(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray):
     c = torch.as_tensor(corpus, device=DEVICE)
     q = torch.as_tensor(queries, device=DEVICE)
     table, budget, raw = _sweep_parts(hashing, c, q, EVAL_FLIP_PROBES, "flip")
-    args = (table, c, q, raw, K, budget, "cosine", "grouped")
-    timed = _sweep_replay_vs_eager(
-        "eval_flip", ev.sweep_step(*args), ev.sweep_body(*args),
-        range(1, EVAL_FLIP_PROBES + 1))
+    args = (table, c, q, raw, wl.K, budget, "cosine", "grouped")
+    values = range(1, EVAL_FLIP_PROBES + 1)
+    eager = _eager_sweep(ev.sweep_body(*args), values)
+    timed = _sweep_replay_vs_eager("eval_flip", ev.sweep_step(*args), eager,
+                                   values)
     emit("eval_flip", card=CARD["nvidia_smi"], engine="grouped",
          n_queries=int(queries.shape[0]), rows=_pairs(rows),
          max_recall_diff=worst, launches=launches,
@@ -2852,7 +2869,7 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
         torch.Generator(device=DEVICE).manual_seed(0))
     reset_launches()
     with timer("sweep"):
-        rows = ev.run_sweep(hashing, c, q, gt, K,
+        rows = ev.run_sweep(hashing, c, q, gt, wl.K,
                             max_probes=EVAL_SAMPLE_PROBES,
                             engine="pallas-grouped", seed=0, device=DEVICE)
     launches = read_launches("grouped_scores_topk")
@@ -2873,8 +2890,11 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     # sweep graphs at 100 probes together ran the card out of memory
     for engine in ("grouped", "windowed", "fixed", "gather"):
         with timer(f"layout_{engine}"):
-            args = (table, c, q, raw, K, budget, "cosine", engine)
+            args = (table, c, q, raw, wl.K, budget, "cosine", engine)
             step, body = ev.sweep_step(*args), ev.sweep_body(*args)
+        # the gather engine's value takes ~1 s: time it once each way
+        values = [EVAL_SAMPLE_PROBES] * (1 if engine == "gather" else 3)
+        eager = _eager_sweep(body, values)
         for n in EVAL_SAMPLE_CHECKS:
             packed = step(n)
             if engine == "grouped":
@@ -2890,14 +2910,12 @@ def phase_eval_sample(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
                              packed[:, :-1].cpu().numpy())
             check(a >= 0.999, f"{engine} vs grouped ids {a} at {n} probes")
             agree[f"{engine}_{n}"] = a
-        # the gather engine's value takes ~1 s: time it once each way
-        timed = _sweep_replay_vs_eager(
-            f"eval_sample {engine}", step, body,
-            [EVAL_SAMPLE_PROBES] * (1 if engine == "gather" else 3))
+        timed = _sweep_replay_vs_eager(f"eval_sample {engine}", step, eager,
+                                       values)
         per_value_ms[engine] = {
             "eager": float(np.median(timed["eager_ms_per_value"])),
             "replay": float(np.median(timed["replay_ms_per_value"]))}
-        del step, body, packed
+        del step, body, packed, eager
         torch.cuda.empty_cache()
     engine_launches = read_launches("windowed_scores_topk",
                                     "bucket_scores_auto")
@@ -2948,7 +2966,7 @@ def phase_eval_ensemble(corpus: np.ndarray, queries: np.ndarray,
     reset_launches()
     with timer("sweep"):
         rows = run_sweep_multitable(
-            load_ensemble(), corpus, queries[:nq], gt[:nq], K, 8,
+            load_ensemble(), corpus, queries[:nq], gt[:nq], wl.K, 8,
             max_probes=32, engine="pallas-windowed", probe_mode="flip",
             device=DEVICE)
     launches = read_launches("windowed_scores_topk")
@@ -3045,7 +3063,7 @@ def phase_hnsw(corpus: np.ndarray, queries: np.ndarray, tmp: str) -> None:
     timer = PhaseTimer()
     rows, qs = corpus[:HNSW_ROWS], queries[:HNSW_QUERIES]
     with timer("exact_knn"):
-        _, exact = knn(qs, rows, K, metric="cosine", device=DEVICE)
+        _, exact = knn(qs, rows, wl.K, metric="cosine", device=DEVICE)
     exact = exact.cpu().numpy()
     with timer("native_build"):
         native.load_library()
@@ -3057,7 +3075,7 @@ def phase_hnsw(corpus: np.ndarray, queries: np.ndarray, tmp: str) -> None:
     for ef, (want_recall, want_visits) in HNSW_REF.items():
         idx.set_ef(ef)
         t0 = time.perf_counter()
-        ids, _, counts = idx.knn_query(qs, k=K)
+        ids, _, counts = idx.knn_query(qs, k=wl.K)
         query_s = time.perf_counter() - t0
         recall = float(calculate_recall(exact, ids, np.mean))
         visits = float(np.mean(counts))
@@ -3087,7 +3105,7 @@ def phase_hnsw(corpus: np.ndarray, queries: np.ndarray, tmp: str) -> None:
 # training: the bench's training configuration at full width
 # ---------------------------------------------------------------------------
 
-# the bench's fit (bench.TRAIN_CFG, 1,000 steps) on its 131,072-row subset;
+# the bench's fit (TRAIN_CFG, 1,000 steps) on its 131,072-row subset;
 # the JAX package's fit at seeds 0 and 1, exact f32 on the CPU, served by
 # the port's plain CPU serve (`train_anchor.py`): recall@10 0.73949 and
 # 0.74233, candidates 4670.52 and 4667.84; the committed params (another
@@ -3107,18 +3125,9 @@ KNN_TIE_TOL = 1e-5               # distances of differing ids, float64
 
 
 def _train_cfg() -> dict:
-    import bench
-
-    c = bench.TRAIN_CFG
+    c = wl.TRAIN_CFG
     return dict(margin=c["margin"], positive_k=c["positive_k"],
                 balance_lambda=c["balance_lambda"])
-
-
-def _bench_head():
-    from nlsh_tpu_torch.models import get_encoder, get_hashing
-
-    return get_hashing("MultivariateBernoulli",
-                       get_encoder("siren", 100, [256, 256]), 12)
 
 
 def _cosine64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -3242,13 +3251,12 @@ def phase_train_step(data, profile: bool = False) -> None:
     ``torch.profiler`` (``train_profile``, ``train_profile_replayed``)."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.train import TripletTrainer
     from nlsh_tpu_torch.train.base import device_arrays, param_leaves
 
-    bs = bench.TRAIN_CFG["batch_size"]
+    bs = wl.TRAIN_CFG["batch_size"]
     arrays = _step_arrays(data, TRAIN_STEP_CHECK, bs)
-    trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
+    trainer = TripletTrainer(bench_head(), data, **_train_cfg())
     out = {}
     for device in ("cpu", DEVICE):
         params = {"hashing": load_hashing().to(device).train(), "extra": {}}
@@ -3259,7 +3267,7 @@ def phase_train_step(data, profile: bool = False) -> None:
         batch = {k: v[:bs] for k, v in dev_arrays.items()}
         loss = trainer.loss_fn(params, corpus, knn, batch, None)
         grads = torch.autograd.grad(loss, param_leaves(params))
-        state = trainer.make_state(params, bench.TRAIN_CFG["learning_rate"])
+        state = trainer.make_state(params, wl.TRAIN_CFG["learning_rate"])
         t0 = time.perf_counter()
         _, losses = trainer.run_segment(state, corpus, knn, dev_arrays, 0,
                                         TRAIN_STEP_CHECK, bs)
@@ -3269,7 +3277,7 @@ def phase_train_step(data, profile: bool = False) -> None:
     def make_state():
         return trainer.make_state(
             {"hashing": load_hashing().to(DEVICE).train(), "extra": {}},
-            bench.TRAIN_CFG["learning_rate"])
+            wl.TRAIN_CFG["learning_rate"])
 
     graphed, eager, replay, _ = _replay_vs_eager(
         "train_step", *_segment_runs(trainer, corpus, knn, dev_arrays, bs),
@@ -3336,28 +3344,27 @@ def phase_train_fused(data) -> None:
     hand-written kernel: every tally stays 0."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
     from nlsh_tpu_torch.parallel import init_multi_table
     from nlsh_tpu_torch.train import MultiTableTrainer, TripletTrainer
     from nlsh_tpu_torch.train.base import device_arrays
 
-    bs = bench.TRAIN_CFG["batch_size"]
-    lr = bench.TRAIN_CFG["learning_rate"]
+    bs = wl.TRAIN_CFG["batch_size"]
+    lr = wl.TRAIN_CFG["learning_rate"]
     corpus = torch.as_tensor(data.training, device=DEVICE)
     knn = torch.as_tensor(data.training_self_knn.astype(np.int64),
                           device=DEVICE)
     n_steps = TRAIN_STEP_CHECK + TRAIN_FUSED_STEPS
-    single = TripletTrainer(_bench_head(), data, **_train_cfg())
-    ensemble = MultiTableTrainer(TripletTrainer(_bench_head(), data,
+    single = TripletTrainer(bench_head(), data, **_train_cfg())
+    ensemble = MultiTableTrainer(TripletTrainer(bench_head(), data,
                                                 **_train_cfg()), 8)
     cases = (
         ("single", single, None, lambda: single.make_state(
             {"hashing": load_hashing().to(DEVICE).train(), "extra": {}}, lr)),
         ("ensemble", ensemble, 8, lambda: ensemble.make_state(
             {"hashing": [h.to(DEVICE) for h in init_multi_table(
-                _bench_head(), 8, torch.Generator().manual_seed(
-                    bench.SEED))], "extra": {}}, lr)))
+                bench_head(), 8, torch.Generator().manual_seed(
+                    wl.SEED))], "extra": {}}, lr)))
     fields = {}
     for name, trainer, n_tables, make_state in cases:
         arrays = device_arrays(_step_arrays(data, n_steps, bs, n_tables),
@@ -3463,33 +3470,32 @@ def phase_train(data, corpus: np.ndarray, queries: np.ndarray,
     launches."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.index import Indexer
     from nlsh_tpu_torch.train import TripletTrainer
     from nlsh_tpu_torch.utils.loggers import JSONLLogger
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     log = os.path.join(tmp, "train.jsonl")
-    trainer = TripletTrainer(_bench_head(), data, os.path.join(tmp, "train"),
+    trainer = TripletTrainer(bench_head(), data, os.path.join(tmp, "train"),
                              logger=JSONLLogger(log, "train"), **_train_cfg())
     reset_launches()
     state, train_s, timing, metrics = _fit_logged(
-        trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
-        learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=100,
-        test_every_updates=TRAIN_EVERY, max_steps=bench.TRAIN_STEPS,
-        hash_times=HASH_TIMES, seed=bench.SEED)
+        trainer, log, K=wl.K, batch_size=wl.TRAIN_CFG["batch_size"],
+        learning_rate=wl.TRAIN_CFG["learning_rate"], epochs=100,
+        test_every_updates=TRAIN_EVERY, max_steps=wl.TRAIN_STEPS,
+        hash_times=wl.HASH_TIMES, seed=wl.SEED)
     launches = read_launches("grouped_scores_topk")
     eval_s = timing["eval_s"]
-    check(state.step == bench.TRAIN_STEPS and len(eval_s) == 2
+    check(state.step == wl.TRAIN_STEPS and len(eval_s) == 2
           and len(timing["step_capture_s"]) == 1,
           f"{state.step} steps, {len(eval_s)} evals, "
           f"{len(timing['step_capture_s'])} step captures")
 
     idx = Indexer(state.params["hashing"], corpus, device=DEVICE,
-                  metric="cosine", probe_budget=CAP)
-    ids, n_cand = idx.query(queries, k=K, hash_times=HASH_TIMES,
+                  metric="cosine", probe_budget=wl.CAP)
+    ids, n_cand = idx.query(queries, k=wl.K, hash_times=wl.HASH_TIMES,
                             probe_mode="flip")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     check(TRAIN_RECALL_RANGE[0] <= recall <= TRAIN_RECALL_RANGE[1],
           f"trained recall@10 {recall} outside {TRAIN_RECALL_RANGE}")
@@ -3516,23 +3522,22 @@ def phase_train_ensemble(data, corpus: np.ndarray, queries: np.ndarray,
     launches."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.parallel import MultiTableIndexer
     from nlsh_tpu_torch.train import MultiTableTrainer, TripletTrainer
     from nlsh_tpu_torch.utils.loggers import JSONLLogger
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     log = os.path.join(tmp, "train_ensemble.jsonl")
-    inner = TripletTrainer(_bench_head(), data,
+    inner = TripletTrainer(bench_head(), data,
                            os.path.join(tmp, "train_ensemble"),
                            logger=JSONLLogger(log, "ensemble"), **_train_cfg())
     trainer = MultiTableTrainer(inner, 8)
     reset_launches()
     state, train_s, timing, metrics = _fit_logged(
-        trainer, log, K=K, batch_size=bench.TRAIN_CFG["batch_size"],
-        learning_rate=bench.TRAIN_CFG["learning_rate"], epochs=1000,
+        trainer, log, K=wl.K, batch_size=wl.TRAIN_CFG["batch_size"],
+        learning_rate=wl.TRAIN_CFG["learning_rate"], epochs=1000,
         test_every_updates=ENSEMBLE_TRAIN_STEPS,
-        max_steps=ENSEMBLE_TRAIN_STEPS, hash_times=HASH_TIMES, seed=bench.SEED)
+        max_steps=ENSEMBLE_TRAIN_STEPS, hash_times=wl.HASH_TIMES, seed=wl.SEED)
     launches = read_launches("windowed_scores_topk")
     eval_s = timing["eval_s"]
     check(state.step == ENSEMBLE_TRAIN_STEPS and len(eval_s) == 1
@@ -3542,10 +3547,10 @@ def phase_train_ensemble(data, corpus: np.ndarray, queries: np.ndarray,
 
     midx = MultiTableIndexer(state.params["hashing"], corpus, device=DEVICE,
                              metric="cosine")
-    kw = dict(hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     midx.calibrate(queries, **kw)
-    ids, n_cand = midx.query(queries, k=K, **kw)
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    ids, n_cand = midx.query(queries, k=wl.K, **kw)
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     size = float(midx.exact_query_size(queries, **kw).mean())
     check(recall >= ENSEMBLE_RECALL_MIN,
           f"trained ensemble recall@10 {recall} < {ENSEMBLE_RECALL_MIN}")
@@ -3613,9 +3618,10 @@ def phase_train_cli(tmp: str) -> dict:
     hashing = load_model(base, device=DEVICE)
     data = SyntheticDataset(device=DEVICE).load()
     idx = Indexer(hashing, data.training, device=DEVICE)
-    ids, n_cand = idx.query(data.testing, k=K, hash_times=8, probe_mode="flip")
-    recall = float(calculate_recall(data.ground_truth[:, :K], ids, np.mean))
-    check(ids.shape == (data.testing.shape[0], K) and 0.0 < recall <= 1.0,
+    ids, n_cand = idx.query(data.testing, k=wl.K, hash_times=8,
+                            probe_mode="flip")
+    recall = float(calculate_recall(data.ground_truth[:, :wl.K], ids, np.mean))
+    check(ids.shape == (data.testing.shape[0], wl.K) and 0.0 < recall <= 1.0,
           f"the checkpoint's serve: {ids.shape}, recall {recall}")
 
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3762,7 +3768,7 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
     ref = Indexer(load_hashing(), corpus, device=DEVICE, metric="cosine")
     r_ids, r_cand = ref.query(queries, **kw)
     ref_cap = ref.layout.cap
@@ -3770,7 +3776,7 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     torch.cuda.empty_cache()
 
     def held(ids, n_cand, what):
-        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
         mean_cand = float(n_cand.mean())
         check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
               f"{what}: recall@10 {recall} outside {RECALL_RANGE}")
@@ -3803,10 +3809,10 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
             row["engines"][engine] = {
                 **res, "median_s": timed["median_s"],
                 "qps": queries.shape[0] / timed["median_s"]}
-            body = idx._serve_body(K, HASH_TIMES, "flip") \
+            body = idx._serve_body(wl.K, wl.HASH_TIMES, "flip") \
                 if engine != "gather" else idx._gather_body(
-                    K, HASH_TIMES, "flip", default_query_chunk(
-                        HASH_TIMES, idx.probe_budget, q.shape[1]))
+                    wl.K, wl.HASH_TIMES, "flip", default_query_chunk(
+                        wl.HASH_TIMES, idx.probe_budget, q.shape[1]))
             row["engines"][engine].update(_serve_replay(
                 f"sharded D={d} {engine}", lambda: idx.query_async(q, **kw),
                 body, q, idx._graphs))
@@ -3836,7 +3842,7 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
         i8 = ShardedIndexer(load_hashing(), corpus, mesh, metric="cosine",
                             engine="grouped", serving_dtype=torch.int8)
         ids, n_cand = i8.query(queries, **kw)
-        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
         check(INT8_RECALL_RANGE[0] <= recall <= INT8_RECALL_RANGE[1],
               f"sharded D={d} int8 recall@10 {recall} outside "
               f"{INT8_RECALL_RANGE}")
@@ -3849,8 +3855,8 @@ def phase_sharded(corpus: np.ndarray, queries: np.ndarray, gt: np.ndarray,
     launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
                              "bucket_scores_auto")
     emit("sharded", card=CARD["nvidia_smi"],
-         n_queries=int(queries.shape[0]), k=K,
-         hash_times=HASH_TIMES, indexer_cap=ref_cap, meshes=out,
+         n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.HASH_TIMES, indexer_cap=ref_cap, meshes=out,
          launches=launches)
     return launches
 
@@ -3873,7 +3879,7 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     from nlsh_tpu_torch.parallel import MultiTableIndexer
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    kw = dict(k=K, hash_times=MT_HASH_TIMES, probe_mode="flip")
+    kw = dict(k=wl.K, hash_times=wl.ENSEMBLE_HASH_TIMES, probe_mode="flip")
     q = torch.as_tensor(queries, device=DEVICE)
     reset_launches()
     t0 = time.perf_counter()
@@ -3886,7 +3892,7 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     for engine in ("windowed", "grouped", "fixed"):
         midx.engine = engine
         ids, n_cand = midx.query(queries, **kw)
-        recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+        recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
         mean_cand = float(n_cand.mean())
         agree = id_agreement(ids, mt_ids)
         check(agree >= 0.999,
@@ -3906,14 +3912,14 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
         if engine != "grouped":
             per[engine].update(_serve_replay(
                 f"table-sharded {engine}", lambda: midx.query_async(q, **kw),
-                midx._mesh_serve_body(K, MT_HASH_TIMES, "flip"), q,
+                midx._mesh_serve_body(wl.K, wl.ENSEMBLE_HASH_TIMES, "flip"), q,
                 midx._graphs))
     launches = read_launches("grouped_scores_topk", "windowed_scores_topk",
                              "bucket_scores_auto")
     midx.engine = "gather"
     head = queries[:MT_GATHER_QUERIES]
     x_ids, x_cand = midx.query(head, **kw)
-    exact = midx.exact_query_size(head, hash_times=MT_HASH_TIMES,
+    exact = midx.exact_query_size(head, hash_times=wl.ENSEMBLE_HASH_TIMES,
                                   probe_mode="flip")
     check(bool((x_cand >= exact).all()),
           "table-sharded gather: n_candidates below the exact distinct count")
@@ -3921,8 +3927,8 @@ def phase_ensemble_sharded(corpus: np.ndarray, queries: np.ndarray,
     check(gather_agree >= 0.98,
           f"table-sharded gather vs unsharded {gather_agree} < 0.98")
     emit("ensemble_sharded", card=CARD["nvidia_smi"],
-         n_queries=int(queries.shape[0]), k=K,
-         hash_times=MT_HASH_TIMES, entries=SHARDS,
+         n_queries=int(queries.shape[0]), k=wl.K,
+         hash_times=wl.ENSEMBLE_HASH_TIMES, entries=SHARDS,
          tables_per_entry=midx.n_tables // SHARDS, build_s=build_s,
          engines=per, gather_queries=MT_GATHER_QUERIES,
          gather_mean_n_candidates=float(x_cand.mean()),
@@ -3946,17 +3952,16 @@ def phase_train_dp(data) -> None:
     (:func:`_step_numbers`)."""
     import torch
 
-    import bench
     from nlsh_tpu_torch.parallel import Mesh
     from nlsh_tpu_torch.parallel.dp import build_dp_segment_runner
     from nlsh_tpu_torch.train import TripletTrainer
     from nlsh_tpu_torch.train.base import device_arrays
 
-    bs = bench.TRAIN_CFG["batch_size"]
-    lr = bench.TRAIN_CFG["learning_rate"]
+    bs = wl.TRAIN_CFG["batch_size"]
+    lr = wl.TRAIN_CFG["learning_rate"]
     arrays = _step_arrays(data, TRAIN_STEP_CHECK + TRAIN_FUSED_STEPS, bs,
                           seed=1)
-    trainer = TripletTrainer(_bench_head(), data, **_train_cfg())
+    trainer = TripletTrainer(bench_head(), data, **_train_cfg())
     out = {}
     for device, mesh in (("cpu", Mesh(["cpu"] * DP_ENTRIES, "data")),
                          (DEVICE, _card_mesh(DP_ENTRIES, "data"))):
@@ -4041,7 +4046,6 @@ def phase_config5(tmp: str) -> dict:
     16,384 queries, peak device memory.  Returns the serves' launches."""
     import torch
 
-    from benchmarks.configs import deepimage96_points, deepimage96_workload
     from nlsh_tpu_torch.models import get_encoder, get_hashing
     from nlsh_tpu_torch.ops.knn import knn, self_knn
     from nlsh_tpu_torch.parallel import ShardedIndexer, make_mesh
@@ -4051,11 +4055,11 @@ def phase_config5(tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    centers, corpus, queries = deepimage96_workload(
+    centers, corpus, queries = wl.deepimage96_workload(
         rng, CONFIG5_N, n_test=CONFIG5_QUERIES, dim=96)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, gt = knn(queries, corpus, k=K, metric="cosine", device=DEVICE,
+    _, gt = knn(queries, corpus, k=wl.K, metric="cosine", device=DEVICE,
                 query_tile=1024, corpus_chunk=131_072)
     gt = gt.cpu().numpy()
     torch.cuda.empty_cache()
@@ -4072,7 +4076,7 @@ def phase_config5(tmp: str) -> dict:
                              positive_k=20, balance_lambda=1.5)
     t0 = time.perf_counter()
     with _Captures() as captured:
-        state = trainer.fit(K=K, batch_size=2048, learning_rate=1e-3,
+        state = trainer.fit(K=wl.K, batch_size=2048, learning_rate=1e-3,
                             epochs=100, test_every_updates=10 ** 9,
                             max_steps=CONFIG5_STEPS, hash_times=10,
                             mesh=make_mesh(axis="data"))
@@ -4083,8 +4087,8 @@ def phase_config5(tmp: str) -> dict:
     check(state.step == CONFIG5_STEPS, f"config 5 fit: {state.step} steps")
     hashing = state.params["hashing"].eval()
 
-    kw = dict(k=K, hash_times=HASH_TIMES, probe_mode="flip")
-    big = deepimage96_points(centers, rng, CONFIG5_BIG_BATCH, dim=96)
+    kw = dict(k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip")
+    big = wl.deepimage96_points(centers, rng, CONFIG5_BIG_BATCH, dim=96)
     reset_launches()
     serves = {}
     answers = {}
@@ -4110,7 +4114,8 @@ def phase_config5(tmp: str) -> dict:
             "build_s": build_s, "cap": lay[0].cap,
             "layout_gib": sum(x.data.numel() * x.data.element_size()
                               for x in lay) / 2 ** 30,
-            "recall_at_10": float(calculate_recall(gt[:, :K], ids, np.mean)),
+            "recall_at_10": float(calculate_recall(gt[:, :wl.K], ids,
+                                                   np.mean)),
             "mean_n_candidates": float(n_cand.mean()),
             "median_s": timed["median_s"],
             "qps": queries.shape[0] / timed["median_s"],
@@ -4146,7 +4151,7 @@ def phase_config5(tmp: str) -> dict:
     check(agree >= 0.999, f"config 5: lazy vs 4-entry ids {agree} < 0.999")
     emit("config5", card=CARD["nvidia_smi"], n_corpus=CONFIG5_N, dim=96,
          n_queries=CONFIG5_QUERIES,
-         bits=CONFIG5_BITS, hash_times=HASH_TIMES, k=K, data_s=data_s,
+         bits=CONFIG5_BITS, hash_times=wl.HASH_TIMES, k=wl.K, data_s=data_s,
          gt_s=gt_s, train_steps=state.step, train_s=train_s,
          train_s_eager_before=CONFIG5_EAGER_TRAIN_S,
          step_capture_s=captured.graphs[0].capture_s,
@@ -4234,7 +4239,8 @@ def phase_config(name: str, tmp: str) -> dict:
                              balance_lambda=cfg["balance_lambda"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = trainer.fit(K=K, batch_size=cfg["batch_size"], learning_rate=1e-3,
+    state = trainer.fit(K=wl.K, batch_size=cfg["batch_size"],
+                        learning_rate=1e-3,
                         epochs=1000, test_every_updates=10 ** 9,
                         max_steps=cfg["steps"],
                         hash_times=cfg["train_hash_times"], device=DEVICE)
@@ -4258,16 +4264,17 @@ def phase_config(name: str, tmp: str) -> dict:
         return (torch.Generator(device=DEVICE).manual_seed(CONFIG_PROBE_SEED)
                 if sampled else None)
 
-    kw = dict(k=K, hash_times=cfg["hash_times"], probe_mode=cfg["probe_mode"])
+    kw = dict(k=wl.K, hash_times=cfg["hash_times"],
+              probe_mode=cfg["probe_mode"])
     reset_launches()
     ids, n_cand = idx.query(queries, generator=draws(), **kw)
     timed = _timed_passes(lambda: idx.query(queries, generator=draws(), **kw),
                           CONFIG_PASSES)
     launches = read_launches("grouped_scores_topk")
     peak_gib["build_serve"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(ids.shape == (queries.shape[0], K), "result shape")
+    check(ids.shape == (queries.shape[0], wl.K), "result shape")
     check(bool(((ids >= -1) & (ids < corpus.shape[0])).all()), "id range")
-    recall = float(calculate_recall(gt[:, :K], ids, np.mean))
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
     check(window["recall"][0] <= recall <= window["recall"][1],
           f"config {name} recall@10 {recall} outside {window['recall']}")
@@ -4301,7 +4308,7 @@ def phase_config(name: str, tmp: str) -> dict:
     peak_gib["checks"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(f"config{name}", n_corpus=int(corpus.shape[0]), dim=dim,
          metric=metric, n_queries=int(queries.shape[0]), bits=cfg["bits"],
-         probe_mode=cfg["probe_mode"], hash_times=cfg["hash_times"], k=K,
+         probe_mode=cfg["probe_mode"], hash_times=cfg["hash_times"], k=wl.K,
          data_s=data_s, subset_knn_s=knn_s, train_steps=state.step,
          train_s=train_s, build_s=build_s, max_bucket=idx.table.max_count(),
          buckets_used=idx.n_buckets_used(), cap=lay.cap, block_rows=lay.br,
@@ -4324,8 +4331,8 @@ def main() -> int:
                              "passes, and the training step (3 passes of "
                              "one step), eager and replayed")
     args = parser.parse_args()
-    import bench  # fails, before any output, outside a checkout of the repo
-    import nlsh_tpu_torch  # noqa: F401
+    missing = [p for p in ARTIFACTS if not os.path.exists(p)]
+    check(not missing, f"committed artifacts missing: {missing}")
 
     info = phase_device()
     phase_build()
@@ -4336,10 +4343,8 @@ def main() -> int:
     launches.update(k7_launches)
 
     # the subset is drawn from the same generator straight after the
-    # workload, as bench.py draws it
-    rng = np.random.default_rng(bench.SEED)
-    corpus, queries = bench.glove100_workload(rng)
-    sub_idx = rng.choice(bench.N_CORPUS, bench.TRAIN_SUBSET, replace=False)
+    # workload, as the committed GT's sub_knn was
+    corpus, queries, sub_idx = wl.glove100_bench()
     with np.load(GT) as z:
         gt, sub_knn = z["gt"], z["sub_knn"]
     idx, build_s = phase_index(corpus)
@@ -4355,6 +4360,7 @@ def main() -> int:
     times.update(fixed_times)
     launches.update(k6_launches)
     phase_int8(idx, queries, gt, n_cand)
+    phase_bf16(idx, queries, gt, n_cand)
     # the one-dispatch serves: their kernels from replayed graphs
     new_callers = {"fused": phase_fused(idx, queries, gt, n_cand)}
 
@@ -4387,7 +4393,7 @@ def main() -> int:
         new_callers["ensemble_sharded"] = phase_ensemble_sharded(
             corpus, queries, gt, mt_ids, mt_cand)
         serve_s = float(np.median(_timed_passes(lambda: restored.query(
-            queries, k=K, hash_times=HASH_TIMES, probe_mode="flip"),
+            queries, k=wl.K, hash_times=wl.HASH_TIMES, probe_mode="flip"),
             3)["pass_s"]))
         new_callers["updates"] = phase_updates(corpus, queries, gt, serve_s)
         new_callers["heads"] = phase_heads(corpus, queries)
@@ -4405,8 +4411,8 @@ def main() -> int:
         phase_hnsw(corpus, queries, tmp)
 
         # training at the bench's configuration, on its subset
-        data = bench._BenchData(corpus[sub_idx], queries[:256], gt[:256],
-                                sub_knn, "cosine")
+        data = wl.BenchData(corpus[sub_idx], queries[:256], gt[:256],
+                            sub_knn, "cosine")
         phase_train_knn(data.training, sub_knn)
         phase_train_step(data, args.profile)
         phase_train_fused(data)
@@ -4437,7 +4443,9 @@ def main() -> int:
          **{k: times[name][k] for k in extra if k in times[name]}}
         for name, (replaces, src) in REPLACES.items()
     ]}), flush=True)
-    check("jax" not in sys.modules, "jax was imported")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "nlsh_tpu", "bench", "benchmarks"))
+    check(not foreign, f"imported outside the port: {foreign}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}),
         flush=True)

@@ -14,3 +14,5 @@ on the CPU.
 """
 
 __version__ = "0.1.0"
+
+from nlsh_tpu_torch import ops, models, index, data, utils  # noqa: F401,E402

@@ -161,8 +161,8 @@ def mode_times(lay, run_len: int, rows: int | None = None,
     register-tile mode."""
     import torch
 
-    import chip_smoke as cs
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools import common as cs
 
     dev = lay.data.device
     gen = torch.Generator(device="cpu").manual_seed(run_len)
@@ -189,20 +189,20 @@ def mode_times(lay, run_len: int, rows: int | None = None,
 def main() -> int:
     import torch
 
-    import bench
-    import chip_smoke as cs
+    from nlsh_tpu_torch.data import workloads as wl
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools import common as cs
 
     if not torch.cuda.is_available():
         raise SystemExit("fixed_events: needs a CUDA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
-    idx = cs.phase_index(corpus)
-    q, pid, pv = cs._probes(idx, queries)
+    corpus, queries, _ = wl.glove100_bench()
+    idx = cs.bench_index(corpus)
+    q, pid, pv = cs.flip_probes(idx, queries)
     rid, rv = (torch.from_numpy(a).to(pid.device) for a in random_bucket_probes(
-        idx.table.n_buckets, queries.shape[0], cs.HASH_TIMES, 0))
+        idx.table.n_buckets, queries.shape[0], wl.HASH_TIMES, 0))
     tables = {"serve": (q, pid, pv), "random_buckets": (q, rid.to(pid.dtype), rv),
               "sparse": (q[:256], rid[:256].to(pid.dtype), rv[:256])}
     for dtype in (torch.float32, torch.int8):

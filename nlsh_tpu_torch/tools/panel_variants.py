@@ -115,8 +115,8 @@ def probe_tflops(workdir: Path) -> float:
     SM, 64 accumulators each, 20,000 sweeps."""
     import torch
 
-    import chip_smoke as cs
     from nlsh_tpu_torch.ops.cuda import build
+    from nlsh_tpu_torch.tools import common as cs
 
     cu = workdir / "probe.cu"
     cu.write_text(_PROBE)
@@ -158,23 +158,22 @@ def smi_under(fn, seconds: float = 2.0) -> str:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
-    import bench
-    import chip_smoke as cs
+    from nlsh_tpu_torch.data import workloads as wl
     from nlsh_tpu_torch.ops.cuda import build
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+    from nlsh_tpu_torch.tools import common as cs
 
     if not torch.cuda.is_available():
         raise SystemExit("panel_variants: needs a CUDA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
-    idx = cs.phase_index(corpus)
+    corpus, queries, _ = wl.glove100_bench()
+    idx = cs.bench_index(corpus)
     lay = idx.layout
-    q, pid, pv = cs._probes(idx, queries)
+    q, pid, pv = cs.flip_probes(idx, queries)
     g_total = qk._round_up(qk.grouped_static_bound(
         pid.numel(), lay.cap // lay.br, lay.total_blocks, 32), qk._GROUP_EB)
     grp_block, grp_qvecs, *_ = qk._grouped_prep_v2(

@@ -105,13 +105,12 @@ def shares(cycles: dict) -> dict:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
-    import bench
-    import chip_smoke as cs
+    from nlsh_tpu_torch.data import workloads as wl
     from nlsh_tpu_torch.ops.cuda import query_kernel as qk
     from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.tools import common as cs
 
     if not torch.cuda.is_available():
         raise SystemExit("topk_phases: needs a CUDA GPU")
@@ -120,10 +119,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     lib = build_library()
 
-    corpus, queries = bench.glove100_workload(np.random.default_rng(bench.SEED))
-    idx = cs.phase_index(corpus)
+    corpus, queries, _ = wl.glove100_bench()
+    idx = cs.bench_index(corpus)
     lay = idx.layout
-    q, pid, pv = cs._probes(idx, queries)
+    q, pid, pv = cs.flip_probes(idx, queries)
     g1 = qk._round_up(qk.grouped_static_bound(
         pid.numel(), lay.cap // lay.br, lay.total_blocks, 32), qk._GROUP_EB)
     gb, gq, gc, *_ = qk._grouped_prep_v2(
@@ -134,9 +133,10 @@ def main() -> int:
     del idx
     midx = MultiTableIndexer(cs.load_ensemble(), corpus, metric="cosine",
                              device="cuda")
-    midx.calibrate(queries, hash_times=cs.MT_HASH_TIMES, probe_mode="flip")
+    midx.calibrate(queries, hash_times=wl.ENSEMBLE_HASH_TIMES,
+                   probe_mode="flip")
     el = midx._serving_layout()
-    gp, gv = cs._flat_probes(midx, queries)
+    gp, gv = cs.flat_flip_probes(midx, queries)
     gw, gq3, glo, ghi, *_ = qk._windowed_prep(
         el.starts, el.counts, gp, gv,
         qk.extend_queries(el, torch.as_tensor(queries, device="cuda")),
@@ -150,16 +150,16 @@ def main() -> int:
         data, qv, blk, lo, hi = args
         extra = (hi,) if lo is None else (lo, hi)
         out = {"kernel": name, "g_total": int(qv.shape[0]),
-               "ms": cs.cuda_ms(lambda: kernel(data, qv, blk, *extra, cs.K,
+               "ms": cs.cuda_ms(lambda: kernel(data, qv, blk, *extra, wl.K,
                                                block_rows=br), 20)}
         read_phases(lib)
         out["instrumented_ms"] = cs.cuda_ms(
-            lambda: launch(lib, *args, cs.K, br), 20)
+            lambda: launch(lib, *args, wl.K, br), 20)
         read_phases(lib, skip_select=True)
         out["no_select_ms"] = cs.cuda_ms(
-            lambda: launch(lib, *args, cs.K, br), 20)
+            lambda: launch(lib, *args, wl.K, br), 20)
         read_phases(lib)  # clears, selection back on
-        launch(lib, *args, cs.K, br)
+        launch(lib, *args, wl.K, br)
         out["phase_share"] = shares(read_phases(lib))
         print(json.dumps(out), flush=True)
     return 0

@@ -13,3 +13,4 @@ from nlsh_tpu_torch.train.hnsw import HNSWBaseline  # noqa: F401
 # reference-compatible aliases
 AE = AETrainer
 VQVAE = VQVAETrainer
+HierarchicalNavigableSmallWorldGraph = HNSWBaseline
