@@ -200,11 +200,13 @@ Each phase one line:
   build and pass times, QPS at 2,000 and 16,384 queries, peak device
   memory.
 
-Then BASELINE's configurations 1 and 2 (``benchmarks/configs.py``'s
-``config_1`` and ``config_2`` on their synthetic stand-ins, as
+Then BASELINE's configurations 1, 2 and 4 and the product-quantisation
+one (``benchmarks/configs.py``'s ``config_1``, ``config_2``, ``config_4``
+and ``config_pq`` on their synthetic stand-ins, as
 ``nlsh_tpu_torch.data.configs`` holds them, the kNN on the card), trained
-and served through ``TripletTrainer.fit``, ``Indexer`` and
-``Indexer.query``, each phase one line:
+through ``TripletTrainer.fit`` (config 4: ``MultiTableTrainer`` of it)
+and served through ``Indexer`` / ``MultiTableIndexer``, each phase one
+line:
 
 * ``config1``: glove-25 shape, 100,000 x 25, cosine;
   ``MultivariateBernoulli(TwoLayer256Relu(25), 8)`` fitted 400 steps
@@ -212,15 +214,28 @@ and served through ``TripletTrainer.fit``, ``Indexer`` and
   generator on the grouped engine at the largest bucket's budget;
 * ``config2``: sift-128 shape, 1,000,000 x 128, euclidean; a 12-bit
   SIREN 128->256->256 fitted 400 steps on a 131,072-row subset (balance
-  1.5, batch 2048), served f32 grouped at 16 flip probes.
+  1.5, batch 2048), served f32 grouped at 16 flip probes;
+* ``config4``: glove-100 shape, 200,000 x 100, cosine; eight 10-bit
+  ``MultivariateBernoulli`` tables on SIREN 100->128->128 fitted jointly
+  300 steps (batch 1024), one f32 flat layout on the windowed engine
+  (K3), calibrated on the first 10,000 corpus rows at one probe a table,
+  the 10,000 queries at one probe a table (each table's hard code); the
+  branch the guard took, and the same batch on both branches;
+* ``configpq``: glove-100 shape, 200,000 x 100, cosine; a 12-bit
+  ``ProductQuantization`` head (3 bands of 4 bits) on SIREN
+  100->256->256 fitted 400 steps (batch 2048), served bf16 grouped (K1)
+  at 10 sampled probes from a CUDA generator.
 
-Each holds recall@10 and mean candidates to the windows of the JAX
-package's own fits (``train_anchor.py --config 1|2``), the grouped serve
-to the gather engine on the same probes (candidates equal, ids >= 0.98)
-and K1 to its plain version (1,000 queries: candidates equal, ids >=
-0.999), and reports ``train_s``, ``build_s``, the pass time, QPS, peak
-device memory and K1's time beside its bound at the serve's shapes
-(d = 25 on a layout padded to 128 features; d = 128 unpadded).
+Each holds recall@10 and mean candidates (config 4: the exact distinct
+count, ``exact_query_size``) to the windows of the JAX package's own fits
+(``train_anchor.py --config <name>``), the serve to the gather engine on
+the same probes (candidates equal per query; ids >= 0.98 on f32 layouts,
+on pq's bf16 layout every differing id within bf16's cosine bound) and
+K1 / K3 to its plain version on the same layout (1,000 queries:
+candidates equal, ids >= 0.999), and reports ``train_s``, ``build_s``,
+the pass time, QPS, peak device memory per stage and K1's / K3's time
+beside its bound at the serve's shapes (d = 25 on a layout padded to 128
+features; d = 128 unpadded; d = 100 padded to 128).
 
 Each path's launch counts are set to 0 just before it and read just
 after; every kernel must have launched on the path that runs it (K1, K2:
@@ -968,8 +983,10 @@ def _grouped_times(lay, q, pid, pv, panel: bool = True) -> dict:
             "kernels": out}
 
 
-def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
-    """K3/K4 and their plain versions at the windowed prep of the probes
+def _windowed_times(lay, q, pid, pv, g_total: int,
+                    panel_reps: int | None) -> dict:
+    """K3/K4 (K4 timed over ``panel_reps`` calls; K3 alone when it is
+    None) and their plain versions at the windowed prep of the probes
     ``(pid, pv)`` on ``lay`` with ``g_total`` groups: CUDA-event times
     and max score error (bounds over the queries' own width, as in
     :func:`_grouped_times`)."""
@@ -994,6 +1011,15 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
         cuda_ms(lambda: qk.windowed_scores_topk_plain(*args, *topk, **kw), 3),
         bounds.topk_counts(*args, *topk, lay.br, q.shape[1], kw["norms"],
                            kw["scale_rows"]), None, NO_LIBRARY_TOPK)
+    live = grp_hi > grp_lo
+    shape = {"g_total": g_total, "group_q": qk.GROUP_W, "block_rows": lay.br,
+             "d_pad": lay.d_pad, "live_groups": int(live.any(dim=1).sum()),
+             "live_slots": int(live.sum()),
+             "topk_blocks_per_sm": qk.topk_blocks_per_sm(
+                 lay.data.dtype, lay.d_pad, windowed=True)}
+    if panel_reps is None:
+        torch.cuda.synchronize()
+        return {**shape, "kernels": out}
     panel = qk.windowed_scores(*args, block_rows=lay.br)
     k4_is_k3 = _panel_is_topk("K4", panel, k3, lay)
     err = _panel_err("K4", panel,
@@ -1008,12 +1034,7 @@ def _windowed_times(lay, q, pid, pv, g_total: int, panel_reps: int) -> dict:
                             lay.br, q.shape[1]),
         bmm_ms(*args, lay.br, panel_reps), LIBRARY_BMM)
     torch.cuda.synchronize()
-    live = grp_hi > grp_lo
-    return {"g_total": g_total, "group_q": qk.GROUP_W, "block_rows": lay.br,
-            "d_pad": lay.d_pad, "live_groups": int(live.any(dim=1).sum()),
-            "live_slots": int(live.sum()),
-            "topk_blocks_per_sm": qk.topk_blocks_per_sm(
-                lay.data.dtype, lay.d_pad, windowed=True),
+    return {**shape,
             "panel_blocks_per_sm": qk.panel_blocks_per_sm(lay.data.dtype,
                                                           lay.d_pad),
             "k4_panel_is_k3_scores_bitwise": k4_is_k3,
@@ -4162,101 +4183,143 @@ def phase_config5(tmp: str) -> dict:
     return launches
 
 
-# the windows of config 1 and 2 (``nlsh_tpu_torch.data.configs``) on the
-# card: the JAX package's fits at seeds 0-3 served by the port's plain CPU
-# serve (train_anchor.py --config 1|2 --seeds 0 1, then 2 3), their range
-# widened by about its width.
-# Config 1 (CPU probe seeds 0-2): recall 0.88050-0.90160, candidates
-# 3915.56-4487.00; config 2: recall 0.98643-0.99294 (0.99276, 0.99216,
-# 0.99294, 0.98643), candidates 3873.47-3893.46
+# the windows of the configurations (``nlsh_tpu_torch.data.configs``) on
+# the card: the JAX package's fits served by the port's plain CPU serve
+# (``train_anchor.py --config <name>``), their range widened by about its
+# width.
+# Config 1 (seeds 0-3, CPU probe seeds 0-2): recall 0.88050-0.90160,
+# candidates 3915.56-4487.00; config 2 (seeds 0-3): recall 0.98643-0.99294
+# (0.99276, 0.99216, 0.99294, 0.98643), candidates 3873.47-3893.46.
+# Config 4 (seeds 0-3; its candidates are ``exact_query_size``'s distinct
+# count, the quantity ``config_4`` reports): recall 0.99961-0.99975,
+# candidates 2462.07-2733.62 (summed over the tables 4412.32-4744.97).
+# Config pq (seeds 0-3, CPU probe seeds 0-2, the bf16 layout): recall
+# 0.81360-0.82940, candidates 3639.68-6177.17 (the fits spread: 265 to 452
+# buckets used).
 CONFIG_WINDOWS = {
     "1": {"recall": (0.86, 0.925), "n_cand": (3500.0, 5000.0)},
     "2": {"recall": (0.980, 0.997), "n_cand": (3700.0, 4050.0)},
+    "4": {"recall": (0.9994, 1.0), "n_cand": (2190.0, 3010.0)},
+    "pq": {"recall": (0.797, 0.846), "n_cand": (1100.0, 8720.0)},
 }
-CONFIG_PROBE_SEED = 1        # the card generator of config 1's sampled probes
-CONFIG_PLAIN_QUERIES = 1_000  # queries of the K1-vs-plain serve
+CONFIG_PROBE_SEED = 1        # the card generator of the sampled probes
+CONFIG_PLAIN_QUERIES = 1_000  # queries of the K1 / K3 vs plain serves
 CONFIG_PASSES = 5
 
 
-def phase_config(name: str, tmp: str) -> dict:
-    """BASELINE's configuration ``name`` (``data.configs.CONFIGS``) on
-    the card through the port's entry points: its data from
-    ``config_data``
+def _config_fit(name: str, tmp: str):
+    """The configuration's data and fit on the card: ``config_data``
     (ground truth and, up to 200,000 rows, the self-kNN on the card; for
-    config 2 a 131,072-row subset drawn with ``default_rng(0)`` and its
-    self-kNN from ``ops.knn.self_knn``), the head (config 1:
-    ``MultivariateBernoulli(TwoLayer256Relu(25), 8)``; config 2: a
-    12-bit SIREN 128->256->256) fitted by ``TripletTrainer.fit`` as
-    ``benchmarks/configs.py``'s ``_train`` fits it, an ``Indexer`` of the
-    full corpus (grouped, f32, the largest bucket as probe budget) and
-    the 10,000 queries served at the configuration's probes (config 1
-    sampled from a CUDA generator seeded ``CONFIG_PROBE_SEED``, config 2
-    flip).  Recall@10 and mean candidates in ``CONFIG_WINDOWS``; the
-    gather engine on the same draws (a fresh generator of the same seed):
-    candidates equal per query, ids >= 0.98; K1 against its plain version
-    on ``CONFIG_PLAIN_QUERIES`` queries: candidates equal, ids >= 0.999;
-    K1's times at the serve's shapes.  Peak device memory of each stage:
-    the data (its kNN), the subset's self-kNN, the fit, the build and
-    serve, the checks; the phase's wall time.  Returns the serve's
-    launches."""
+    a ``subset`` its rows drawn with ``default_rng(0)`` and their
+    self-kNN from ``ops.knn.self_knn``), then ``config_head`` fitted by
+    ``TripletTrainer.fit`` as ``benchmarks/configs.py``'s ``_train`` fits
+    it (margin 0.5, positive_k 20, lr 1e-3), through
+    ``MultiTableTrainer`` for an ensemble.  Returns the data, the fitted
+    state and the stages' seconds and peak device memory."""
     import torch
 
     from nlsh_tpu_torch import models
-    from nlsh_tpu_torch.data.configs import (CONFIGS, config_data,
-                                             config_encoder)
-    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.data.configs import CONFIGS, config_data, config_head
     from nlsh_tpu_torch.ops.knn import self_knn
-    from nlsh_tpu_torch.train import TripletTrainer
-    from nlsh_tpu_torch.utils.metrics import calculate_recall
+    from nlsh_tpu_torch.train import MultiTableTrainer, TripletTrainer
 
-    cfg, window = CONFIGS[name], CONFIG_WINDOWS[name]
+    cfg = CONFIGS[name]
     torch.cuda.reset_peak_memory_stats()
-    t_phase = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     data = config_data(*cfg["data"], device=DEVICE)
     torch.cuda.synchronize()
-    data_s = time.perf_counter() - t0
+    stats = {"data_s": time.perf_counter() - t0, "subset_knn_s": None}
     peak_gib = {"data": torch.cuda.max_memory_allocated() / 2 ** 30}
-    corpus, queries, gt = data.training, data.testing, data.ground_truth
-    metric, dim = data.metric, data.dim
-    train_data, knn_s = data, None
+    train_data = data
     if cfg["subset"]:
+        corpus = data.training
         sub = np.random.default_rng(0).choice(corpus.shape[0], cfg["subset"],
                                               replace=False)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        sub_knn = self_knn(corpus[sub], k=20, metric=metric,
+        sub_knn = self_knn(corpus[sub], k=20, metric=data.metric,
                            device=DEVICE).cpu().numpy()
-        knn_s = time.perf_counter() - t0
+        stats["subset_knn_s"] = time.perf_counter() - t0
         peak_gib["subset_knn"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        train_data = _SubsetData(corpus[sub], sub_knn, queries, gt, metric)
+        train_data = _SubsetData(corpus[sub], sub_knn, data.testing,
+                                 data.ground_truth, data.metric)
     check(train_data.training_self_knn.shape == (train_data.training.shape[0],
                                                  20), "the self-kNN's shape")
-    head = models.MultivariateBernoulli(config_encoder(models, cfg, dim),
-                                        cfg["bits"])
-    trainer = TripletTrainer(head, train_data,
+    trainer = TripletTrainer(config_head(models, cfg, data.dim), train_data,
                              os.path.join(tmp, f"config{name}"),
                              margin=0.5, positive_k=20,
                              balance_lambda=cfg["balance_lambda"])
+    if cfg["n_tables"]:
+        trainer = MultiTableTrainer(trainer, cfg["n_tables"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = trainer.fit(K=wl.K, batch_size=cfg["batch_size"],
-                        learning_rate=1e-3,
-                        epochs=1000, test_every_updates=10 ** 9,
-                        max_steps=cfg["steps"],
-                        hash_times=cfg["train_hash_times"], device=DEVICE)
+    with _Captures() as captured:
+        state = trainer.fit(K=wl.K, batch_size=cfg["batch_size"],
+                            learning_rate=1e-3, epochs=1000,
+                            test_every_updates=10 ** 9,
+                            max_steps=cfg["steps"],
+                            hash_times=cfg["train_hash_times"], device=DEVICE)
     torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    stats["train_s"] = time.perf_counter() - t0
     check(state.step == cfg["steps"], f"config {name} fit: {state.step} steps")
+    check(len(captured.graphs) == 1,
+          f"config {name} fit: {len(captured.graphs)} step graphs, not one")
     peak_gib["fit"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats.update(train_steps=state.step,
+                 step_capture_s=captured.graphs[0].capture_s,
+                 step_graph_pool_mib=captured.graphs[0].pool_bytes / 2 ** 20,
+                 peak_device_gib=peak_gib)
+    return cfg, data, state, stats
+
+
+def _in_window(name: str, what: str, value: float) -> None:
+    lo, hi = CONFIG_WINDOWS[name][what]
+    check(lo <= value <= hi,
+          f"config {name} {what} {value} outside {(lo, hi)}")
+
+
+def phase_config(name: str, tmp: str) -> dict:
+    """BASELINE's single-table configuration ``name``
+    (``data.configs.CONFIGS``: 1, 2 or pq) on the card through the port's
+    entry points: the data and fit of :func:`_config_fit` (config 1:
+    ``MultivariateBernoulli(TwoLayer256Relu(25), 8)``; config 2: a
+    12-bit SIREN 128->256->256 on its 131,072-row subset; pq: a 12-bit
+    ``ProductQuantization`` head, 3 bands of 4 bits, on SIREN
+    100->256->256), an ``Indexer`` of the full corpus (grouped, the
+    table's layout dtype: f32, or bf16 for pq; the largest bucket as
+    probe budget) and every query served at the configuration's probes
+    (configs 1 and pq sampled from a CUDA generator seeded
+    ``CONFIG_PROBE_SEED``, config 2 flip).  Recall@10 and mean candidates
+    in ``CONFIG_WINDOWS``; the gather engine on the same draws (a fresh
+    generator of the same seed): candidates equal per query, and on an f32
+    layout ids >= 0.98, on the bf16 layout (the gather scores the exact
+    f32 corpus, so bf16 rows reorder near-ties) each query's r-th best
+    exact cosine never more than ``BF16_SCORE_BOUND`` below the gather's;
+    K1 against its plain version on the same layout on
+    ``CONFIG_PLAIN_QUERIES`` queries: candidates equal, ids >= 0.999; K1's
+    times at the serve's shapes.  Peak device memory of each stage: the
+    data (its kNN), the subset's self-kNN, the fit, the build and serve,
+    the checks; the phase's wall time.  Returns the serve's launches."""
+    import torch
+
+    from nlsh_tpu_torch.index import Indexer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    t_phase = time.perf_counter()
+    cfg, data, state, stats = _config_fit(name, tmp)
+    peak_gib = stats.pop("peak_device_gib")
+    corpus, queries, gt = data.training, data.testing, data.ground_truth
+    dtype = getattr(torch, cfg["serving_dtype"])
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     idx = Indexer(state.params["hashing"], corpus, device=DEVICE,
-                  metric=metric, engine="grouped",
-                  serving_dtype=torch.float32)
+                  metric=data.metric, engine=cfg["engine"],
+                  serving_dtype=dtype)
     lay = idx.layout
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    check(lay.data.dtype == dtype, f"config {name}: a {lay.data.dtype} layout")
     sampled = cfg["probe_mode"] == "sample"
 
     def draws():
@@ -4276,11 +4339,8 @@ def phase_config(name: str, tmp: str) -> dict:
     check(bool(((ids >= -1) & (ids < corpus.shape[0])).all()), "id range")
     recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     mean_cand = float(n_cand.mean())
-    check(window["recall"][0] <= recall <= window["recall"][1],
-          f"config {name} recall@10 {recall} outside {window['recall']}")
-    check(window["n_cand"][0] <= mean_cand <= window["n_cand"][1],
-          f"config {name} mean n_candidates {mean_cand} outside "
-          f"{window['n_cand']}")
+    _in_window(name, "recall", recall)
+    _in_window(name, "n_cand", mean_cand)
 
     torch.cuda.reset_peak_memory_stats()
     n = CONFIG_PLAIN_QUERIES
@@ -4292,12 +4352,21 @@ def phase_config(name: str, tmp: str) -> dict:
           f"config {name}: K1 vs its plain version {vs_plain}")
     idx.engine = "gather"
     g_ids, g_cand = idx.query(queries, generator=draws(), **kw)
-    idx.engine = "grouped"
+    idx.engine = cfg["engine"]
     check(bool(np.array_equal(g_cand, n_cand)),
           f"config {name}: gather candidates differ from grouped")
     vs_gather = id_agreement(ids, g_ids)
-    check(vs_gather >= 0.98,
-          f"config {name}: grouped vs gather {vs_gather} < 0.98")
+    gather = {"grouped_vs_gather": vs_gather}
+    if dtype == torch.float32:
+        check(vs_gather >= 0.98,
+              f"config {name}: grouped vs gather {vs_gather} < 0.98")
+    else:
+        regret = _bf16_regret(corpus, queries, ids, g_ids)
+        check(regret <= BF16_SCORE_BOUND,
+              f"config {name}: the bf16 serve ranks {regret} below the "
+              f"exact f32 gather, over the bf16 bound {BF16_SCORE_BOUND}")
+        gather.update(gather_slot_agreement=_slot_agreement(ids, g_ids),
+                      max_rank_regret=regret)
 
     q = torch.as_tensor(queries, device=DEVICE)
     with torch.no_grad():
@@ -4306,18 +4375,146 @@ def phase_config(name: str, tmp: str) -> dict:
                                    probe_mode=cfg["probe_mode"])
     k1 = _grouped_times(lay, q, pid, pv, panel=False)
     peak_gib["checks"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    emit(f"config{name}", n_corpus=int(corpus.shape[0]), dim=dim,
-         metric=metric, n_queries=int(queries.shape[0]), bits=cfg["bits"],
-         probe_mode=cfg["probe_mode"], hash_times=cfg["hash_times"], k=wl.K,
-         data_s=data_s, subset_knn_s=knn_s, train_steps=state.step,
-         train_s=train_s, build_s=build_s, max_bucket=idx.table.max_count(),
-         buckets_used=idx.n_buckets_used(), cap=lay.cap, block_rows=lay.br,
-         d_pad=lay.d_pad, recall_at_10=recall, mean_n_candidates=mean_cand,
-         window=window, **timed, qps=queries.shape[0] / timed["median_s"],
-         k1_vs_plain=vs_plain, grouped_vs_gather=vs_gather,
-         peak_device_gib=peak_gib, launches=launches, k1_times=k1,
+    emit(f"config{name}", card=CARD["nvidia_smi"],
+         n_corpus=int(corpus.shape[0]), dim=data.dim, metric=data.metric,
+         n_queries=int(queries.shape[0]), head=cfg["head"], bits=cfg["bits"],
+         serving_dtype=cfg["serving_dtype"], probe_mode=cfg["probe_mode"],
+         hash_times=cfg["hash_times"], k=wl.K, **stats, build_s=build_s,
+         max_bucket=idx.table.max_count(), buckets_used=idx.n_buckets_used(),
+         cap=lay.cap, block_rows=lay.br, d_pad=lay.d_pad,
+         layout_gib=lay.data.numel() * lay.data.element_size() / 2 ** 30,
+         recall_at_10=recall, mean_n_candidates=mean_cand,
+         window=CONFIG_WINDOWS[name], **timed,
+         qps=queries.shape[0] / timed["median_s"], k1_vs_plain=vs_plain,
+         **gather, peak_device_gib=peak_gib, launches=launches, k1_times=k1,
          phase_s=time.perf_counter() - t_phase)
     del idx, lay, q
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_config4(tmp: str) -> dict:
+    """BASELINE's configuration 4, the L=8 jointly trained ensemble, on
+    the card through the port's entry points: the data and fit of
+    :func:`_config_fit` (200,000 x 100 glove-100 shape, eight 10-bit
+    ``MultivariateBernoulli`` tables on SIREN 100->128->128 through
+    ``MultiTableTrainer``), a ``MultiTableIndexer`` of the full corpus
+    (one f32 flat layout of the eight tables, the windowed engine, the
+    largest bucket as probe budget) calibrated on the first 10,000 corpus
+    rows at one probe a table, and the 10,000 queries served at one probe
+    a table (each table's hard code), the guard inside the replay picking
+    the calibrated group table or the static one.  Recall@10 and the mean
+    exact distinct candidates (``exact_query_size``, what ``config_4``
+    reports) in ``CONFIG_WINDOWS``; the summed per-table candidates beside
+    them; the branch the batch took (its needed group count against the
+    calibration) and the same batch on each branch (a calibration on the
+    queries themselves, and a starved one on 4 queries): ids and
+    candidates equal to the first serve's; K3 against its plain version
+    on ``CONFIG_PLAIN_QUERIES`` queries: candidates equal, ids >= 0.999;
+    the gather engine on the same probes: its distinct candidates equal
+    ``exact_query_size`` per query, ids >= 0.98; K3's times at the
+    serve's shapes.  Peak device memory of each stage and the phase's
+    wall time.  Returns the serve's launches."""
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    t_phase = time.perf_counter()
+    cfg, data, state, stats = _config_fit("4", tmp)
+    peak_gib = stats.pop("peak_device_gib")
+    corpus, queries, gt = data.training, data.testing, data.ground_truth
+    kw = dict(hash_times=cfg["hash_times"], probe_mode=cfg["probe_mode"])
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    midx = MultiTableIndexer(state.params["hashing"], corpus, device=DEVICE,
+                             metric=data.metric, engine=cfg["engine"],
+                             serving_dtype=getattr(torch,
+                                                   cfg["serving_dtype"]))
+    layout = midx._serving_layout()
+    g_cal = midx.calibrate(corpus[:cfg["calibrate_rows"]], **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(midx.n_tables == cfg["n_tables"] and midx.engine == "windowed",
+          f"config 4: {midx.n_tables} tables on {midx.engine}")
+    q = torch.as_tensor(queries, device=DEVICE)
+    with torch.no_grad():
+        gp, gv = midx._flat_probes(*midx._probes(
+            q, cfg["hash_times"], probe_mode=cfg["probe_mode"]))
+    override, needed = midx.windowed_group_bound(layout, gp, gv)
+    static = _static_groups(layout, gp)
+    branch = "calibrated" if override is not None else "static"
+
+    reset_launches()
+    ids, n_cand = midx.query(queries, k=wl.K, **kw)
+    timed = _timed_passes(lambda: midx.query(queries, k=wl.K, **kw),
+                          CONFIG_PASSES)
+    launches = read_launches("windowed_scores_topk")
+    peak_gib["build_serve"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(ids.shape == (queries.shape[0], wl.K), "config 4 result shape")
+    check(bool(((ids >= -1) & (ids < corpus.shape[0])).all()),
+          "config 4 id range")
+    for row in ids[:200]:
+        real = row[row >= 0]
+        check(len(set(real)) == len(real), "duplicate ids after the dedupe")
+    recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
+    size = midx.exact_query_size(queries, **kw)
+    mean_size = float(size.mean())
+    _in_window("4", "recall", recall)
+    _in_window("4", "n_cand", mean_size)
+    check(bool((n_cand >= size).all()),
+          "config 4: summed candidates below the distinct count")
+
+    torch.cuda.reset_peak_memory_stats()
+    n = CONFIG_PLAIN_QUERIES
+    p_ids, p_cand = midx.query(queries[:n], k=wl.K, plain=True, **kw)
+    vs_plain = id_agreement(ids[:n], p_ids)
+    check(bool(np.array_equal(p_cand, n_cand[:n])) and vs_plain >= 0.999,
+          f"config 4: K3 vs its plain version {vs_plain}")
+    g_used = override if override is not None else static
+    k3 = _windowed_times(layout, q, gp, gv, g_used, panel_reps=None)
+    branches = {}
+    for what, rows in (("calibrated", queries), ("static", queries[:4])):
+        g = midx.calibrate(rows, **kw)
+        b_override, _ = midx.windowed_group_bound(layout, gp, gv)
+        check((b_override is not None) == (what == "calibrated"),
+              f"config 4: the {what} branch was not taken ({g} groups "
+              f"calibrated, {needed} needed)")
+        b_ids, b_cand = midx.query(queries, k=wl.K, **kw)
+        check(bool(np.array_equal(b_ids, ids))
+              and bool(np.array_equal(b_cand, n_cand)),
+              f"config 4: the {what} branch answers otherwise")
+        branches[what] = {"groups_calibrated": g, "ids_equal": True,
+                          "n_candidates_equal": True}
+    midx.engine = "gather"
+    x_ids, x_cand = midx.query(queries, k=wl.K, **kw)
+    check(bool(np.array_equal(x_cand, size)),
+          "config 4: gather candidates differ from exact_query_size")
+    vs_gather = id_agreement(ids, x_ids)
+    check(vs_gather >= 0.98, f"config 4: windowed vs gather {vs_gather} < 0.98")
+    peak_gib["checks"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("config4", card=CARD["nvidia_smi"], n_corpus=int(corpus.shape[0]),
+         dim=data.dim, metric=data.metric, n_queries=int(queries.shape[0]),
+         head=cfg["head"], bits=cfg["bits"], n_tables=cfg["n_tables"],
+         serving_dtype=cfg["serving_dtype"], probe_mode=cfg["probe_mode"],
+         hash_times=cfg["hash_times"], k=wl.K, **stats, build_s=build_s,
+         max_bucket=[int(c) for c in midx.counts.max(dim=1).values],
+         buckets_used=[int(c) for c in (midx.counts > 0).sum(dim=1)],
+         probe_budget=midx.probe_budget, cap=layout.cap, align=layout.align,
+         block_rows=layout.br, layout_rows=layout.n_rows,
+         layout_gib=layout.data.numel() * layout.data.element_size() / 2 ** 30,
+         calibrate_rows=cfg["calibrate_rows"], groups_calibrated=g_cal,
+         groups_needed=needed, groups_static=static, branch=branch,
+         branches=branches, recall_at_10=recall,
+         mean_exact_query_size=mean_size,
+         mean_summed_candidates=float(n_cand.mean()),
+         window=CONFIG_WINDOWS["4"], **timed,
+         qps=queries.shape[0] / timed["median_s"], k3_vs_plain=vs_plain,
+         windowed_vs_gather=vs_gather, peak_device_gib=peak_gib,
+         launches=launches, k3_times=k3,
+         phase_s=time.perf_counter() - t_phase)
+    del midx, layout, q
     torch.cuda.empty_cache()
     return launches
 
@@ -4427,9 +4624,12 @@ def main() -> int:
         new_callers["sharded"] = phase_sharded(corpus, queries, gt, tmp)
         del corpus
         new_callers["config5"] = phase_config5(tmp)
-        # BASELINE's configurations 1 and 2, trained and served
-        for name in CONFIG_WINDOWS:
+        # BASELINE's configurations 1, 2 and 4 and the product-quantisation
+        # one, trained and served
+        for name in ("1", "2"):
             new_callers[f"config{name}"] = phase_config(name, tmp)
+        new_callers["config4"] = phase_config4(tmp)
+        new_callers["configpq"] = phase_config("pq", tmp)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_note")

@@ -1,25 +1,49 @@
-"""BASELINE's configurations 1 and 2 as ``benchmarks/configs.py``'s
-``config_1`` and ``config_2`` build, fit and serve them: their data,
-trunk, head and training and serving arguments, in one table that the
-card's smoke run and the JAX anchor fits both read."""
+"""BASELINE's configurations 1, 2 and 4 and the product-quantisation one
+as ``benchmarks/configs.py``'s ``config_1``, ``config_2``, ``config_4``
+and ``config_pq`` build, fit and serve them: their data, trunk, head and
+training and serving arguments, in one table that the card's smoke run
+and the JAX anchor fits both read."""
 
 from __future__ import annotations
 
 from nlsh_tpu_torch.data.datasets import Dataset, SyntheticDataset
 
-# ``data``: ``_data``'s arguments; ``subset``: the rows the fit trains on
-# (``default_rng(0).choice``, their self-kNN computed apart), or None for
-# the whole corpus with its self-kNN; ``train_hash_times``: ``_train``'s
-# ``hash_times``; ``hash_times`` and ``probe_mode``: the serve's
+# ``data``: ``_data``'s arguments; ``head``, ``encoder``, ``widths`` and
+# ``bits``: the hashing (``get_hashing(head, get_encoder(encoder, dim,
+# widths), bits)``); ``n_tables``: the jointly trained tables
+# (``MultiTableTrainer``), or None for one; ``subset``: the rows the fit
+# trains on (``default_rng(0).choice``, their self-kNN computed apart), or
+# None for the whole corpus with its self-kNN; ``train_hash_times``:
+# ``_train``'s ``hash_times``; ``hash_times`` and ``probe_mode``: the
+# serve's; ``engine`` and ``serving_dtype``: the index's (the engine the
+# accelerator serves; ``"float32"`` or ``"bfloat16"`` rows);
+# ``calibrate_rows``: the first corpus rows the windowed ensemble
+# calibrates its group bound on (at ``hash_times=1``), or None
 CONFIGS = {
     "1": dict(data=("glove_25", 100_000, 10_000, 25, "cosine"),
-              encoder="mlp", bits=8, balance_lambda=0.0, batch_size=1024,
+              head="MultivariateBernoulli", encoder="mlp", widths=(256, 256),
+              bits=8, n_tables=None, balance_lambda=0.0, batch_size=1024,
               steps=400, train_hash_times=10, subset=None, hash_times=10,
-              probe_mode="sample"),
+              probe_mode="sample", engine="grouped", serving_dtype="float32",
+              calibrate_rows=None),
     "2": dict(data=("sift", 1_000_000, 10_000, 128, "euclidean"),
-              encoder="siren", bits=12, balance_lambda=1.5, batch_size=2048,
-              steps=400, train_hash_times=16, subset=131_072, hash_times=16,
-              probe_mode="flip"),
+              head="MultivariateBernoulli", encoder="siren",
+              widths=(256, 256), bits=12, n_tables=None, balance_lambda=1.5,
+              batch_size=2048, steps=400, train_hash_times=16,
+              subset=131_072, hash_times=16, probe_mode="flip",
+              engine="grouped", serving_dtype="float32", calibrate_rows=None),
+    "4": dict(data=("glove_100_mt", 200_000, 10_000, 100, "cosine"),
+              head="MultivariateBernoulli", encoder="siren",
+              widths=(128, 128), bits=10, n_tables=8, balance_lambda=0.0,
+              batch_size=1024, steps=300, train_hash_times=10, subset=None,
+              hash_times=1, probe_mode="sample", engine="windowed",
+              serving_dtype="float32", calibrate_rows=10_000),
+    "pq": dict(data=("glove_100_pq", 200_000, 2000, 100, "cosine"),
+               head="ProductQuantization", encoder="siren",
+               widths=(256, 256), bits=12, n_tables=None, balance_lambda=0.0,
+               batch_size=2048, steps=400, train_hash_times=10, subset=None,
+               hash_times=10, probe_mode="sample", engine="grouped",
+               serving_dtype="bfloat16", calibrate_rows=None),
 }
 
 
@@ -27,10 +51,21 @@ def config_encoder(models, cfg: dict, dim: int):
     """The configuration's trunk from ``models``, the ``models`` package
     of either the port or the JAX package: ``TwoLayer256Relu(dim)`` for
     config 1 (``config_1``'s ``get_encoder("mlp", dim, [256, 256])`` is
-    the same ``MLPEncoder``), else the named trunk of two 256 layers."""
+    the same ``MLPEncoder``), else the named trunk of the table's
+    widths."""
     if cfg["encoder"] == "mlp":
         return models.TwoLayer256Relu(dim)
-    return models.get_encoder(cfg["encoder"], dim, [256, 256])
+    return models.get_encoder(cfg["encoder"], dim, list(cfg["widths"]))
+
+
+def config_head(models, cfg: dict, dim: int):
+    """The configuration's head from ``models`` (either package's):
+    ``get_hashing(head, trunk, bits)``.  An ensemble's tables are this
+    head's architecture: ``MultiTableTrainer(trainer, n_tables)`` of a
+    trainer of it draws them (in the JAX package one module with stacked
+    params, in the port one module per table)."""
+    return models.get_hashing(cfg["head"], config_encoder(models, cfg, dim),
+                              cfg["bits"])
 
 
 def config_data(data_id: str, n_train: int, n_test: int, dim: int,

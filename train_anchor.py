@@ -4,6 +4,8 @@
     JAX_PLATFORMS=cpu python3 train_anchor.py --seeds 0 1 --out <dir>
     JAX_PLATFORMS=cpu python3 train_anchor.py --config 1 --out <dir>
     JAX_PLATFORMS=cpu python3 train_anchor.py --config 2 --out <dir>
+    JAX_PLATFORMS=cpu python3 train_anchor.py --config 4 --out <dir>
+    JAX_PLATFORMS=cpu python3 train_anchor.py --config pq --out <dir>
 
 For each seed, the JAX package's ``TripletTrainer.fit`` at the bench's
 training configuration (``bench.TRAIN_CFG``: SIREN 100->256->256, 12-bit
@@ -15,18 +17,24 @@ rows) is served by the port's plain CPU serve: 10,000 queries, 16 flip
 probes, cap 512, k = 10, recall@10 against the committed ground truth.
 One JSON line per seed; the params go to ``<dir>/params_s<seed>.msgpack``.
 
-``--config 1`` and ``--config 2`` fit BASELINE's configurations 1 and 2
-as ``benchmarks/configs.py``'s ``config_1`` / ``config_2`` fit them
-(``nlsh_tpu_torch.data.configs``), on the synthetic stand-ins of its
-``_data`` (built by the JAX package; their kNN cached under
-``<dir>/synth_cache`` unless ``NLSH_SYNTH_CACHE_DIR`` is set), and serve
-the full corpus with the port's plain CPU serve at the configuration's
-probes: config 1's sampled probes once per ``CONFIG_PROBE_SEEDS`` seed of
-a CPU generator (the spread of the draws beside the spread of the fits),
-config 2's flip probes once.  One JSON line per serve.
+``--config 1``, ``2``, ``4`` and ``pq`` fit BASELINE's configurations
+1, 2 and 4 and the product-quantisation one as ``benchmarks/configs.py``'s
+``config_1`` / ``config_2`` / ``config_4`` / ``config_pq`` fit them
+(``nlsh_tpu_torch.data.configs``; config 4 eight tables jointly, through
+``MultiTableTrainer``), on the synthetic stand-ins of its ``_data``
+(built by the JAX package; their kNN cached under ``<dir>/synth_cache``
+unless ``NLSH_SYNTH_CACHE_DIR`` is set), and serve the full corpus with
+the port's plain CPU serve at the configuration's probes, engine and
+layout: sampled probes (configs 1 and pq) once per ``CONFIG_PROBE_SEEDS``
+seed of a CPU generator (the spread of the draws beside the spread of
+the fits), config 2's flip probes once, config 4's ensemble once on the
+windowed engine at one probe a table after ``calibrate`` on its first
+10,000 corpus rows, with the exact distinct-candidate count
+(``exact_query_size``, the quantity ``config_4`` reports) beside the
+summed one.  One JSON line per serve.
 
-These are the numbers ``chip_smoke.py``'s ``train``, ``config1`` and
-``config2`` phases are held to: a model trained by another random stream
+These are the numbers ``chip_smoke.py``'s ``train`` and ``config<name>``
+phases are held to: a model trained by another random stream
 lands in their neighbourhood, not on these values.  Imports JAX, so it
 runs where the JAX package runs, never on the card's machine.
 """
@@ -44,7 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GT = os.path.join(ROOT, "benchmarks", "artifacts", "bench_cache",
                   "gt_s0_n1183514_d100_q10000_k10_ts131072_v2.npz")
 QUERY_CHUNK = 1000  # queries per plain serve call: bounds host memory
-CONFIG_PROBE_SEEDS = (0, 1, 2)  # CPU generators of config 1's sampled probes
+CONFIG_PROBE_SEEDS = (0, 1, 2)  # CPU generators of the sampled probes
 
 
 def _fit(seed: int, data, out_dir: str):
@@ -76,6 +84,13 @@ def _fit(seed: int, data, out_dir: str):
     return path, train_s
 
 
+def _chunked(serve, queries):
+    """``serve`` over ``QUERY_CHUNK``-query chunks, concatenated."""
+    ids, n_cand = zip(*(serve(queries[s: s + QUERY_CHUNK])
+                        for s in range(0, queries.shape[0], QUERY_CHUNK)))
+    return np.concatenate(ids), np.concatenate(n_cand)
+
+
 def _serve(params_path: str, corpus, queries, gt) -> dict:
     import torch
 
@@ -91,11 +106,9 @@ def _serve(params_path: str, corpus, queries, gt) -> dict:
     params_from_jax(hashing, read_msgpack(params_path))
     idx = Indexer(hashing, torch.from_numpy(corpus), device="cpu",
                   metric="cosine", probe_budget=512)
-    ids, n_cand = zip(*(idx.query(queries[s: s + QUERY_CHUNK], k=bench.K,
-                                  hash_times=bench.HASH_TIMES,
-                                  probe_mode="flip")
-                        for s in range(0, queries.shape[0], QUERY_CHUNK)))
-    ids, n_cand = np.concatenate(ids), np.concatenate(n_cand)
+    ids, n_cand = _chunked(lambda q: idx.query(
+        q, k=bench.K, hash_times=bench.HASH_TIMES, probe_mode="flip"),
+        queries)
     return {"recall_at_10": float(calculate_recall(gt, ids, np.mean)),
             "mean_n_candidates": float(n_cand.mean()),
             "max_bucket": idx.table.max_count(),
@@ -130,16 +143,16 @@ def _config_fit(cfg: dict, seed: int, train_data, out_dir: str, name: str):
 
     from benchmarks.configs import _StderrLogger
     from nlsh_tpu import models
-    from nlsh_tpu.train import TripletTrainer
-    from nlsh_tpu_torch.data.configs import config_encoder
+    from nlsh_tpu.train import MultiTableTrainer, TripletTrainer
+    from nlsh_tpu_torch.data.configs import config_head
 
     dim = train_data.training.shape[1]
-    hashing = models.get_hashing("MultivariateBernoulli",
-                                 config_encoder(models, cfg, dim), cfg["bits"])
-    trainer = TripletTrainer(hashing, train_data, out_dir,
-                             logger=_StderrLogger(), margin=0.5,
+    trainer = TripletTrainer(config_head(models, cfg, dim), train_data,
+                             out_dir, logger=_StderrLogger(), margin=0.5,
                              positive_k=20,
                              balance_lambda=cfg["balance_lambda"])
+    if cfg["n_tables"]:
+        trainer = MultiTableTrainer(trainer, cfg["n_tables"])
     t0 = time.perf_counter()
     state = trainer.fit(K=10, batch_size=cfg["batch_size"],
                         learning_rate=1e-3, epochs=1000,
@@ -155,36 +168,73 @@ def _config_fit(cfg: dict, seed: int, train_data, out_dir: str, name: str):
 
 def _config_serves(cfg: dict, params_path: str, data):
     """The port's plain CPU serve of the full corpus: one result per
-    ``CONFIG_PROBE_SEEDS`` seed (sampled probes), or one (flip probes)."""
+    ``CONFIG_PROBE_SEEDS`` seed (sampled probes), or one (flip probes, or
+    the ensemble's one probe a table)."""
     import torch
 
     from nlsh_tpu_torch import models
-    from nlsh_tpu_torch.data.configs import config_encoder
+    from nlsh_tpu_torch.data.configs import config_head
     from nlsh_tpu_torch.index import Indexer
-    from nlsh_tpu_torch.utils.checkpoint import params_from_jax, read_msgpack
+    from nlsh_tpu_torch.utils.checkpoint import (
+        params_from_jax,
+        read_msgpack,
+        stacked_params_from_jax,
+    )
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
-    hashing = models.get_hashing("MultivariateBernoulli",
-                                 config_encoder(models, cfg, data.dim),
-                                 cfg["bits"])
-    params_from_jax(hashing, read_msgpack(params_path))
-    idx = Indexer(hashing, torch.from_numpy(data.training), device="cpu",
-                  metric=data.metric, engine="grouped")
+    def head():
+        return config_head(models, cfg, data.dim)
+
+    if cfg["n_tables"]:
+        yield _ensemble_serve(cfg, stacked_params_from_jax(
+            head, read_msgpack(params_path)), data)
+        return
+    gt = data.ground_truth[:, :10]
+    idx = Indexer(params_from_jax(head(), read_msgpack(params_path)),
+                  torch.from_numpy(data.training), device="cpu",
+                  metric=data.metric, engine=cfg["engine"],
+                  serving_dtype=getattr(torch, cfg["serving_dtype"]))
     sampled = cfg["probe_mode"] == "sample"
     for ps in CONFIG_PROBE_SEEDS if sampled else [None]:
         gen = torch.Generator().manual_seed(ps) if sampled else None
-        ids, n_cand = zip(*(
-            idx.query(data.testing[s: s + QUERY_CHUNK], k=10,
-                      hash_times=cfg["hash_times"], generator=gen,
-                      probe_mode=cfg["probe_mode"])
-            for s in range(0, data.testing.shape[0], QUERY_CHUNK)))
-        ids, n_cand = np.concatenate(ids), np.concatenate(n_cand)
+        ids, n_cand = _chunked(lambda q: idx.query(
+            q, k=10, hash_times=cfg["hash_times"], generator=gen,
+            probe_mode=cfg["probe_mode"]), data.testing)
         yield {"probe_seed": ps,
-               "recall_at_10": float(calculate_recall(
-                   data.ground_truth[:, :10], ids, np.mean)),
+               "recall_at_10": float(calculate_recall(gt, ids, np.mean)),
                "mean_n_candidates": float(n_cand.mean()),
                "max_bucket": idx.table.max_count(),
-               "buckets_used": idx.n_buckets_used()}
+               "buckets_used": idx.n_buckets_used(),
+               "serving_dtype": cfg["serving_dtype"]}
+
+
+def _ensemble_serve(cfg: dict, hashings, data) -> dict:
+    """The ensemble's windowed serve on the CPU, after ``calibrate`` on
+    the first ``calibrate_rows`` corpus rows: recall@10, the summed and
+    the exact distinct candidates, and the calibrated group count."""
+    import torch
+
+    from nlsh_tpu_torch.parallel import MultiTableIndexer
+    from nlsh_tpu_torch.utils.metrics import calculate_recall
+
+    midx = MultiTableIndexer(hashings, torch.from_numpy(data.training),
+                             device="cpu", metric=data.metric,
+                             engine=cfg["engine"],
+                             serving_dtype=getattr(torch,
+                                                   cfg["serving_dtype"]))
+    kw = dict(hash_times=cfg["hash_times"], probe_mode=cfg["probe_mode"])
+    g_cal = midx.calibrate(data.training[:cfg["calibrate_rows"]], **kw)
+    ids, n_cand = _chunked(lambda q: midx.query(q, k=10, **kw), data.testing)
+    size = midx.exact_query_size(data.testing, **kw)
+    return {"probe_seed": None,
+            "recall_at_10": float(calculate_recall(
+                data.ground_truth[:, :10], ids, np.mean)),
+            "mean_n_candidates": float(n_cand.mean()),
+            "mean_exact_query_size": float(size.mean()),
+            "groups_calibrated": g_cal,
+            "max_bucket": [int(c) for c in midx.counts.max(dim=1).values],
+            "buckets_used": [int(c) for c in (midx.counts > 0).sum(dim=1)],
+            "serving_dtype": cfg["serving_dtype"]}
 
 
 def main_config(name: str, seeds, out_dir: str) -> None:
@@ -206,9 +256,10 @@ def main_config(name: str, seeds, out_dir: str) -> None:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=("bench", "1", "2"), default="bench",
-                   help="the bench's fit, or BASELINE's configuration 1 "
-                        "or 2")
+    p.add_argument("--config", choices=("bench", "1", "2", "4", "pq"),
+                   default="bench",
+                   help="the bench's fit, BASELINE's configuration 1, 2 "
+                        "or 4, or the product-quantisation one")
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     p.add_argument("--out", required=True,
                    help="directory for the trained params")
