@@ -1,0 +1,11 @@
+"""``device_idle_share``: the share of the traced window in which no
+kernel, copy or fill ran on the card (``torch.profiler`` trace)."""
+
+META = {"unit": "%", "better": "lower", "source": "device_trace",
+        "layer": "device", "moves": "qps"}
+
+
+def read(ctx):
+    if not ctx.trace.device:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s() / ctx.trace.window_s)
