@@ -154,7 +154,9 @@ def serve_loop(args, idx, extra, dim, stdin=None, stdout=None) -> dict:
     deadlock.  Query batches are padded to the next power of two (min 8)
     so a shape-diverse stream meets few distinct shapes.  EOF flushes
     pending work and emits a final ``{"stats": ...}`` line with latency
-    percentiles.
+    percentiles and, under ``serve``, the index's ``serve_stats()``: the
+    device milliseconds a batch by layer, the guard's fallbacks and the
+    graphs' captures, replays, evictions and nodes.
     """
     import select
     import sys
@@ -238,6 +240,7 @@ def serve_loop(args, idx, extra, dim, stdin=None, stdout=None) -> dict:
             "latency_ms_p95": round(float(np.percentile(lat, 95)), 2),
             "latency_ms_max": round(float(lat.max()), 2),
             "engine": idx.engine,
+            "serve": idx.serve_stats(),
         }
     }
     json.dump(stats, stdout)

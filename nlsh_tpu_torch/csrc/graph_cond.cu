@@ -13,8 +13,12 @@
 //      dependencies, made its only dependency; `body` then captures into
 //      the node's body graph (thread-local mode), so the kernels and torch
 //      ops the caller launches on `body` run only where the handle is set.
-//   3. nlsh_cond_end: ends `body`'s capture.  The next node on `stream`
-//      follows the IF node.
+//   3. nlsh_cond_end: ends `body`'s capture and gives the body graph's
+//      node count.  The next node on `stream` follows the IF node.
+// nlsh_graph_nodes gives the node count of the graph `stream` captures
+// into so far (conditional bodies not included): utils/graphs.py `capture`
+// reads it as the capture's last step, since a replay's host launch time
+// grows with the nodes.
 // nlsh_cond_stream makes the `body` stream: one of its own, never one of
 // torch's pool, which hands its streams round and could hand out the
 // capturing stream itself.
@@ -92,9 +96,24 @@ int nlsh_cond_stream(cudaStream_t* body) {
   return cudaStreamCreateWithFlags(body, cudaStreamNonBlocking);
 }
 
-int nlsh_cond_end(cudaStream_t body) {
+int nlsh_cond_end(cudaStream_t body, unsigned long long* nodes) {
   cudaGraph_t graph;
-  return cudaStreamEndCapture(body, &graph);
+  cudaError_t err = cudaStreamEndCapture(body, &graph);
+  if (err != cudaSuccess) return err;
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  *nodes = n;
+  return err;
+}
+
+int nlsh_graph_nodes(cudaStream_t stream, unsigned long long* nodes) {
+  cudaGraph_t graph;
+  cudaError_t err = capturing_graph(stream, &graph, nullptr, nullptr);
+  if (err != cudaSuccess) return err;
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  *nodes = n;
+  return err;
 }
 
 }  // extern "C"

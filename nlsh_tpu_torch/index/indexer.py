@@ -16,6 +16,11 @@ kernel K5, the JAX package's ``"pallas"``, on the cap-aligned layout
 the grouped engine uses) and ``"gather"`` (gather + exact rerank, the
 JAX package's ``"xla"``; one replayed graph of :func:`_gather_body`).
 Serving layouts are f32, bf16 or int8 (per-row or global scale).
+A fused serve's body marks its layers on the device
+(:func:`nlsh_tpu_torch.utils.profiling.mark`: hash, then the engine's
+prep, score and merge, then end), and ``query_async`` and ``fetch`` open
+host spans while a profiler records; :meth:`Indexer.serve_stats` reads
+the marks and the graphs' counters.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     corpus_fingerprint,
 )
 from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache
+from nlsh_tpu_torch.utils.profiling import mark, span, span_stats
 
 # a saved index holds the JAX package's engine and dtype names
 ENGINE_TO_JAX = {"auto": "auto", "gather": "xla", "fixed": "pallas",
@@ -126,16 +132,20 @@ def _serve_body(hashing, layout, full_counts, *, k: int, hash_times: int,
     (sampled probes from the given uniforms), the engine's serve (with
     the kernels' plain versions if ``plain``) and the pack into ONE
     ``(nq, k+1)`` int32 tensor ``[topk_ids | n_candidates]``, as the JAX
-    package's ``_fused_serve`` packs it."""
+    package's ``_fused_serve`` packs it.  The body opens with the
+    ``hash`` mark and closes with ``end``."""
     serve = _SERVES[grouped]
 
     def body(queries, uniforms):
+        mark("hash", queries)
         probe_ids, probe_valid = hashing.hash(
             queries, n_probes=hash_times, probe_mode=probe_mode,
             uniforms=uniforms)
         ids, _, n_cand = serve(layout, queries, probe_ids, probe_valid,
                                full_counts, k=k, plain=plain)
-        return torch.cat([ids, n_cand[:, None]], dim=1)
+        packed = torch.cat([ids, n_cand[:, None]], dim=1)
+        mark("end", queries)
+        return packed
 
     return body
 
@@ -183,8 +193,10 @@ def _fused_serve(hashing, layout, full_counts, queries,
     body = _serve_body(hashing, layout, full_counts, k=k,
                        hash_times=hash_times, probe_mode=probe_mode,
                        grouped=grouped)
-    uniforms = hashing.probe_uniforms(queries.shape[0], hash_times, generator,
-                                      probe_mode, device=queries.device)
+    with span("nlsh.uniforms"):
+        uniforms = hashing.probe_uniforms(queries.shape[0], hash_times,
+                                          generator, probe_mode,
+                                          device=queries.device)
     key = ("serve", id(hashing), id(layout), id(full_counts), k, hash_times,
            probe_mode, _SERVES[grouped].__name__)
     return (DEFAULT if graphs is None else graphs).run(
@@ -522,18 +534,24 @@ class Indexer:
         With tombstones pending (:meth:`remove`) the engine over-fetches
         ``k + next_pow2(#deleted)`` and the tombstones are dropped on the
         device: ranking stays exact, and ``n_candidates`` still counts
-        tombstoned candidates until :meth:`compact`."""
-        queries = torch.as_tensor(queries, dtype=torch.float32,
-                                  device=self.device)
-        m = self.n_deleted
-        k_eff = k if m == 0 else k + (1 << (m - 1).bit_length())
-        res = self._query_raw(queries, k_eff, hash_times, generator,
-                              query_chunk, probe_mode, plain)
-        if not m:
-            return res
-        dead = torch.from_numpy(self._deleted).to(self.device)
-        top = _drop_deleted(res[:, :-1].contiguous(), dead, k)
-        return torch.cat([top, res[:, -1:]], dim=1)
+        tombstoned candidates until :meth:`compact`.
+
+        While a profiler records, the call is the host span ``nlsh.query``
+        around ``nlsh.upload`` (the batch to the device), ``nlsh.uniforms``
+        (the sampled probes' draw) and the replay's ``nlsh.replay``."""
+        with span("nlsh.query"):
+            with span("nlsh.upload"):
+                queries = torch.as_tensor(queries, dtype=torch.float32,
+                                          device=self.device)
+            m = self.n_deleted
+            k_eff = k if m == 0 else k + (1 << (m - 1).bit_length())
+            res = self._query_raw(queries, k_eff, hash_times, generator,
+                                  query_chunk, probe_mode, plain)
+            if not m:
+                return res
+            dead = torch.from_numpy(self._deleted).to(self.device)
+            top = _drop_deleted(res[:, :-1].contiguous(), dead, k)
+            return torch.cat([top, res[:, -1:]], dim=1)
 
     def _query_raw(self, queries, k: int, hash_times: int, generator,
                    query_chunk, probe_mode: str, plain: bool):
@@ -548,9 +566,10 @@ class Indexer:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         def uniforms():
-            return self.hashing.probe_uniforms(
-                queries.shape[0], hash_times, generator, probe_mode,
-                device=queries.device)
+            with span("nlsh.uniforms"):
+                return self.hashing.probe_uniforms(
+                    queries.shape[0], hash_times, generator, probe_mode,
+                    device=queries.device)
 
         if self.engine == "gather":
             if query_chunk is None:
@@ -588,9 +607,21 @@ class Indexer:
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
         """A :meth:`query_async` result on the host: ``(topk_ids (nq, k),
-        n_candidates (nq,))`` numpy arrays, from ONE copy."""
-        packed = result.cpu().numpy()
+        n_candidates (nq,))`` numpy arrays, from ONE copy (the host span
+        ``nlsh.fetch`` while a profiler records)."""
+        with span("nlsh.fetch"):
+            packed = result.cpu().numpy()
         return packed[:, :-1], packed[:, -1]
+
+    def serve_stats(self) -> dict:
+        """The serve's counters: per layer the device milliseconds and
+        the times it was opened, and the guard's fallbacks
+        (:func:`~nlsh_tpu_torch.utils.profiling.span_stats` of the index's
+        device, shared by every index on it; fused serves only, the gather
+        engine marks none), and this index's graphs' captures, replays,
+        evictions and nodes (:meth:`GraphCache.stats`).  On a card the
+        read waits for the work queued before it."""
+        return {**span_stats(self.device), "graphs": self._graphs.stats()}
 
     def query(self, queries, k: int = 10, hash_times: int = 10,
               generator: torch.Generator | None = None,

@@ -24,6 +24,12 @@ gather engine whenever ``layout.cap`` covers the probed buckets.
 
 K1 returns scores and int32 lanes as two arrays, so the JAX package's
 ``PACK_W`` panel packing (a TPU gather workaround) has no counterpart.
+
+Each engine marks its layers (:func:`nlsh_tpu_torch.utils.profiling.mark`):
+``prep`` before the queries' extension, ``score`` before the scoring
+kernel, ``merge`` after it.  The marks count inside a serve body that
+opened with a ``hash`` mark (the fused serves'), and do nothing
+elsewhere.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+from nlsh_tpu_torch.utils.profiling import mark
 
 
 def _largest_k(x: torch.Tensor, k: int):
@@ -72,9 +79,12 @@ def serving_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
             "rebuild the layout with align=None or serve with the "
             "grouped engine")
     cap = layout.cap
+    mark("prep", queries)
     qe = qk.extend_queries(layout, queries)
+    mark("score", queries)
     scores, start_pos = qk.bucket_scores(layout, qe, probe_ids, probe_valid,
                                          plain=plain)
+    mark("merge", queries)
     blk = start_pos.long() // cap
     if layout.scale is not None and layout.scale.ndim == 1:
         # per-row int8 dequantisation before the norms bias and the merge
@@ -168,6 +178,7 @@ def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
             "the grouped engine indexes blocks by start/block_rows and needs "
             f"block-aligned bucket starts (align={layout.align}, "
             f"block_rows={br})")
+    mark("prep", queries)
     qe = qk.extend_queries(layout, queries)
     grp_block, grp_qvecs, grp_cnt, ev_row, ev_block, ev_valid = (
         qk._grouped_prep_v2(layout.starts, layout.counts, probe_ids,
@@ -177,6 +188,7 @@ def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
     per_row = layout.scale is not None and layout.scale.ndim == 1
     if row_k is None:
         row_k = k
+    mark("score", queries)
     if row_k <= qk.ROW_TOPK:
         # K1: only each row's best row_k leave the kernel; row_k per block
         # suffices, since one block holds distinct corpus rows
@@ -185,11 +197,13 @@ def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
             layout.data, grp_qvecs, grp_block, grp_cnt, kk=row_k,
             block_rows=br, norms=layout.norms,
             scale_rows=layout.scale if per_row else None)
+        mark("merge", queries)
         row_top = row_top.reshape(g_total * group_q, -1)
         row_lane = row_lane.reshape(g_total * group_q, -1)
     else:
         panel = qk.grouped_scores_plain if plain else qk.grouped_scores
         scores = panel(layout.data, grp_qvecs, grp_block, block_rows=br)
+        mark("merge", queries)
         row_top, row_lane = _panel_topk(layout, scores, grp_block, None,
                                         grp_cnt, k)
     return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,
@@ -201,6 +215,7 @@ def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
                     max_sub: int, group_q: int, row_k: int | None,
                     plain: bool):
     br = layout.br
+    mark("prep", queries)
     qe = qk.extend_queries(layout, queries)
     (grp_window, grp_qvecs, grp_lo, grp_hi, ev_row, ev_window,
      ev_valid) = qk._windowed_prep(
@@ -209,6 +224,7 @@ def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
     per_row = layout.scale is not None and layout.scale.ndim == 1
     if row_k is None:
         row_k = k
+    mark("score", queries)
     if row_k <= qk.ROW_TOPK:
         # K3: a window holds distinct corpus rows, so row_k per slot
         # suffices
@@ -218,12 +234,14 @@ def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
             layout.data, grp_qvecs, grp_window, grp_lo, grp_hi, kk=row_k,
             block_rows=br, norms=layout.norms,
             scale_rows=layout.scale if per_row else None)
+        mark("merge", queries)
         row_top = row_top.reshape(g_total * group_q, -1)
         row_lane = row_lane.reshape(g_total * group_q, -1)
     else:
         # K4 emits raw panels; scale, norms and the [lo, hi) mask follow
         panel = qk.windowed_scores_plain if plain else qk.windowed_scores
         scores = panel(layout.data, grp_qvecs, grp_window, block_rows=br)
+        mark("merge", queries)
         row_top, row_lane = _panel_topk(layout, scores, grp_window, grp_lo,
                                         grp_hi, k)
     return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,

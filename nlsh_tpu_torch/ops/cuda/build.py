@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 The kernels in ``nlsh_tpu_torch/csrc`` (and ``graph_cond.cu``, the
-conditional nodes of a captured graph) have a plain C interface, so they
+conditional nodes of a captured graph, and ``spans.cu``, a serve's layer
+marks) have a plain C interface, so they
 compile with ``nvcc`` alone (no PyTorch headers, a few seconds each) and
 bind with ``ctypes``.  :func:`load_library` builds on first use into
 ``build/nlsh_tpu_torch/`` next to the package: one library per source,
@@ -68,10 +69,18 @@ SOURCES = {
         "nlsh_cond_handles": [_P, _P, _P],
         # stream, handle, body stream: an IF node, body captured on body
         "nlsh_cond_begin": [_P, ctypes.c_ulonglong, _P],
-        # body stream
-        "nlsh_cond_end": [_P],
+        # body stream, out unsigned long long*: the body graph's nodes
+        "nlsh_cond_end": [_P, _P],
         # out cudaStream_t*: a non-blocking stream for the bodies
         "nlsh_cond_stream": [_P],
+        # stream, out unsigned long long*: the nodes of the graph the
+        # stream captures into
+        "nlsh_graph_nodes": [_P, _P],
+    },
+    "spans.cu": {
+        # which (1 hash, 2 prep, 3 score, 4 merge, 5 end, 6 bound),
+        # accumulator (int64[SPAN_SLOTS]), stream
+        "nlsh_span": [_I, _P, _P],
     },
 }
 

@@ -91,6 +91,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     corpus_fingerprint,
 )
 from nlsh_tpu_torch.utils.graphs import DEFAULT, GraphCache, cond
+from nlsh_tpu_torch.utils.profiling import mark, span, span_stats
 
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
@@ -197,10 +198,15 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
     batch's exact group need is computed on the device and
     :func:`~nlsh_tpu_torch.utils.graphs.cond` serves at ``g_override``
     where it fits, else at the static bound (in a graph: two conditional
-    nodes, decided on the card), so no batch drops candidates."""
+    nodes, decided on the card), so no batch drops candidates.  The body
+    marks its layers: ``hash`` (every table and the flat probes), ``prep``
+    (the guard's group count, then the engine's), ``score``, ``merge``
+    (the engine's merge, the collapse and the pack) and ``end``; the
+    static-bound branch opens with the count-only ``bound``."""
     L, n_buckets = len(hashings), hashings[0].n_buckets
 
     def body(queries, uniforms):
+        mark("hash", queries)
         pids, pvalid = _table_probes(hashings, queries, hash_times,
                                      probe_mode, uniforms)
         gp, gv = _flat(pids, pvalid, n_buckets)
@@ -211,13 +217,18 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
                     layout, queries, gp, gv, layout.counts, k=k_fetch,
                     row_k=k, g_total_override=g)
 
+            def static_bound():
+                mark("bound", queries)
+                return windowed(None)
+
             if g_override is None:
                 ids, scores, n_cand = windowed(None)
             else:
+                mark("prep", queries)
                 need = _windowed_needed_groups(layout, gp, gv)
                 ids, scores, n_cand = cond(need <= g_override,
                                            lambda: windowed(g_override),
-                                           lambda: windowed(None))
+                                           static_bound)
         elif engine == "grouped":
             ids, scores, n_cand = serving_query_grouped(
                 layout, queries, gp, gv, layout.counts, k=k_fetch, row_k=k,
@@ -226,7 +237,9 @@ def _mt_serve_body(hashings, layout, *, k: int, hash_times: int,
             ids, scores, n_cand = serving_query(layout, queries, gp, gv,
                                                 layout.counts, k=k_fetch)
         merged, _ = MultiTableIndexer._dedupe_topk(ids, scores, k, n_rows)
-        return torch.cat([merged, n_cand[:, None]], dim=1)
+        packed = torch.cat([merged, n_cand[:, None]], dim=1)
+        mark("end", queries)
+        return packed
 
     return body
 
@@ -968,16 +981,28 @@ class MultiTableIndexer:
         exact group bound read on the host, and it, meshes over several
         devices or processes and ``plain=True`` (the kernels' plain
         PyTorch versions) serve eagerly and return ``(topk_ids,
-        n_candidates)``.  On the CPU a graph's body runs eagerly."""
-        queries = torch.as_tensor(queries, dtype=torch.float32,
-                                  device=self.device)
+        n_candidates)``.  On the CPU a graph's body runs eagerly.
+
+        While a profiler records, the call is the host span ``nlsh.query``
+        around ``nlsh.upload``, ``nlsh.uniforms`` and the replay's
+        ``nlsh.replay``."""
+        with span("nlsh.query"):
+            return self._query_async(queries, k, hash_times, generator,
+                                     probe_mode, plain)
+
+    def _query_async(self, queries, k: int, hash_times: int, generator,
+                     probe_mode: str, plain: bool):
+        with span("nlsh.upload"):
+            queries = torch.as_tensor(queries, dtype=torch.float32,
+                                      device=self.device)
         gather = self.engine == "gather"
         if not plain and (gather or self.engine in ("windowed", "fixed")) \
                 and (self.mesh is None or self.mesh.on_one_device()) \
                 and not (gather and self.corpus is None):
-            uniforms = _table_uniforms(self.hashings, queries.shape[0],
-                                       hash_times, generator, probe_mode,
-                                       self.device)
+            with span("nlsh.uniforms"):
+                uniforms = _table_uniforms(self.hashings, queries.shape[0],
+                                           hash_times, generator, probe_mode,
+                                           self.device)
             holds = tuple(self.hashings)
             if gather:
                 key = ("mt_gather", k, hash_times, probe_mode,
@@ -1009,12 +1034,22 @@ class MultiTableIndexer:
     @staticmethod
     def fetch(result) -> tuple[np.ndarray, np.ndarray]:
         """``(topk_ids (nq, k), n_candidates (nq,))`` as numpy arrays; a
-        packed result is ONE copy."""
-        if isinstance(result, tuple):
-            ids, n_cand = result
-            return ids.cpu().numpy(), n_cand.cpu().numpy()
-        packed = result.cpu().numpy()
+        packed result is ONE copy (the host span ``nlsh.fetch`` while a
+        profiler records)."""
+        with span("nlsh.fetch"):
+            if isinstance(result, tuple):
+                ids, n_cand = result
+                return ids.cpu().numpy(), n_cand.cpu().numpy()
+            packed = result.cpu().numpy()
         return packed[:, :-1], packed[:, -1]
+
+    def serve_stats(self) -> dict:
+        """As :meth:`Indexer.serve_stats
+        <nlsh_tpu_torch.index.Indexer.serve_stats>`: the layer marks of
+        the index's device (the fused ensemble serve's; ``guard_fallbacks``
+        counts the batches the windowed guard served at the static bound)
+        and this index's graphs' counters."""
+        return {**span_stats(self.device), "graphs": self._graphs.stats()}
 
     def query(self, queries, k: int = 10, hash_times: int = 1,
               generator: torch.Generator | None = None,

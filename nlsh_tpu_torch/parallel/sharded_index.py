@@ -73,6 +73,7 @@ from nlsh_tpu_torch.utils.fingerprint import (
     corpus_fingerprint,
 )
 from nlsh_tpu_torch.utils.graphs import GraphCache
+from nlsh_tpu_torch.utils.profiling import span_stats
 
 _SERVING_METRICS = ("cosine", "euclidean", "sq_euclidean")
 _SERVES = {"grouped": serving_query_grouped,
@@ -553,6 +554,13 @@ class ShardedIndexer:
         (nq,))``."""
         arr = result.cpu().numpy()
         return arr[:, :-1], arr[:, -1]
+
+    def serve_stats(self) -> dict:
+        """As :meth:`Indexer.serve_stats
+        <nlsh_tpu_torch.index.Indexer.serve_stats>`: the layer marks of
+        the first device (a sharded serve marks no layers of its own) and
+        this index's graphs' counters."""
+        return {**span_stats(self.device), "graphs": self._graphs.stats()}
 
     def query(self, queries, k: int = 10, hash_times: int = 10,
               generator: torch.Generator | None = None,

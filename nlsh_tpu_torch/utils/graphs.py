@@ -44,6 +44,14 @@ body with autograd on and replays it once per step.
   a replay decides on the card; in the warm-up both branches run (the
   one not taken needs its kernels loaded too); elsewhere ``pred`` is
   read on the host and one branch runs.
+* Counters: a :class:`GraphCache` counts its captures, replays and
+  evictions (an evicted key's next call captures again), and each entry
+  keeps its graph's node count, counted at capture through CUDA's own
+  API (``csrc/graph_cond.cu``): a replay's host launch time grows with
+  it.  While a profiler records, :meth:`GraphCache.run` marks its replay
+  (the static copy-in, the replay, the clone-out) and a capture with the
+  host spans ``nlsh.replay`` and ``nlsh.capture``
+  (:func:`nlsh_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -56,14 +64,22 @@ from typing import Callable
 import torch
 
 from nlsh_tpu_torch.ops.cuda.query_kernel import KERNEL_LAUNCHES
+from nlsh_tpu_torch.utils.profiling import span
 
 MAX_GRAPHS = 16  # entries a cache keeps, the most recently used
 
 # the memory pool of the graph :func:`capture` is capturing, whether it runs
-# its warm-up, and whether a :func:`cond` routed this thread to that pool
+# its warm-up, whether a :func:`cond` routed this thread to that pool, and
+# the nodes of the conditional bodies it captured
 _capturing_pool: tuple | None = None
 _warming = False
 _rerouted = False
+_body_nodes = 0
+
+
+def warming() -> bool:
+    """Whether :func:`capture` is running its warm-up."""
+    return _warming
 
 
 def _leaves(out) -> tuple:
@@ -130,6 +146,7 @@ def _cond_nodes(pred: torch.Tensor, branches, operands) -> tuple:
     from nlsh_tpu_torch.ops.cuda.build import load_library
     from nlsh_tpu_torch.ops.cuda.query_kernel import _raise_on
 
+    global _body_nodes
     lib = load_library()
     device = pred.device
     _route_thread_to_pool(device)
@@ -151,8 +168,11 @@ def _cond_nodes(pred: torch.Tensor, branches, operands) -> tuple:
                 for dst, src in zip(outs[0] if outs else (), out):
                     dst.copy_(src)
         finally:
-            ended = lib.nlsh_cond_end(ctypes.c_void_p(body.cuda_stream))
+            nodes = ctypes.c_ulonglong()
+            ended = lib.nlsh_cond_end(ctypes.c_void_p(body.cuda_stream),
+                                      ctypes.byref(nodes))
         _raise_on(ended, "nlsh_cond_end")
+        _body_nodes += nodes.value
         outs.append(out)
         if first is None:
             first = {name: n - counted.get(name, 0)
@@ -202,14 +222,15 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
 
 class Graph:
     """A captured graph over its static inputs and outputs, with the
-    kernel launches a replay makes, its memory pool's bytes and the host
-    seconds its warm-up and capture took."""
+    kernel launches a replay makes, its memory pool's bytes, the host
+    seconds its warm-up and capture took and its nodes (the conditional
+    bodies' included)."""
 
     __slots__ = ("graph", "inputs", "outputs", "launches", "pool_bytes",
-                 "holds", "capture_s")
+                 "holds", "capture_s", "nodes")
 
     def __init__(self, graph, inputs, outputs, launches, pool_bytes, holds,
-                 capture_s):
+                 capture_s, nodes):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
@@ -217,6 +238,7 @@ class Graph:
         self.pool_bytes = pool_bytes
         self.holds = holds
         self.capture_s = capture_s
+        self.nodes = nodes
 
     def replay(self) -> None:
         """One replay on the current stream, its launches counted."""
@@ -235,6 +257,9 @@ class GraphCache:
 
     def __init__(self):
         self._entries: OrderedDict = OrderedDict()
+        self.captures = 0   # graphs captured (an evicted key's again)
+        self.replays = 0
+        self.evictions = 0  # entries dropped past MAX_GRAPHS
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -254,6 +279,17 @@ class GraphCache:
         of :meth:`pool_bytes`."""
         return [e.capture_s for e in self._entries.values()]
 
+    def nodes(self) -> list[int]:
+        """Each entry's graph nodes, conditional bodies' included, in the
+        order of :meth:`pool_bytes`."""
+        return [e.nodes for e in self._entries.values()]
+
+    def stats(self) -> dict:
+        """The counters: captures, replays, evictions and each entry's
+        nodes."""
+        return {"captures": self.captures, "replays": self.replays,
+                "evictions": self.evictions, "nodes": self.nodes()}
+
     def run(self, key, body: Callable, inputs: tuple, holds: tuple = ()):
         """``body(*inputs)`` (a tensor or a tuple of tensors; ``None``
         inputs pass through) as a replay of the graph captured for ``key``
@@ -267,21 +303,24 @@ class GraphCache:
         full_key = (key, device, _signature(inputs))
         entry = self._entries.get(full_key)
         if entry is None:
-            with torch.cuda.device(device):
+            with span("nlsh.capture"), torch.cuda.device(device):
                 static = tuple(None if t is None else t.detach().clone()
                                for t in inputs)
-            entry = capture(body, static, device, holds)
+                entry = capture(body, static, device, holds)
+            self.captures += 1
             self._entries[full_key] = entry
             while len(self._entries) > MAX_GRAPHS:
                 self._entries.popitem(last=False)
+                self.evictions += 1
         else:
             self._entries.move_to_end(full_key)
-        with torch.cuda.device(device):
+        with span("nlsh.replay"), torch.cuda.device(device):
             for static, t in zip(entry.inputs, inputs):
                 if static is not None:
                     static.copy_(t)
             entry.replay()
             out = tuple(o.clone() for o in entry.outputs)
+        self.replays += 1
         return out if len(out) > 1 else out[0]
 
 
@@ -291,9 +330,14 @@ def capture(body: Callable, static: tuple, device: torch.device,
     branches of every :func:`cond`), then capture it into a graph over
     the same ``static`` tensors, which the caller fills before each
     replay; a failed capture raises.  Both run under ``no_grad``, or with
-    autograd on where ``grad`` (a training step)."""
-    global _capturing_pool, _warming, _rerouted
+    autograd on where ``grad`` (a training step).  The graph's nodes are
+    counted as the capture's last step."""
+    global _capturing_pool, _warming, _rerouted, _body_nodes
+    from nlsh_tpu_torch.ops.cuda.build import load_library
+    from nlsh_tpu_torch.ops.cuda.query_kernel import _raise_on
+
     t0 = time.perf_counter()
+    lib = load_library()  # loaded before the capture, which counts with it
     with torch.cuda.device(device), torch.set_grad_enabled(grad):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -309,10 +353,16 @@ def capture(body: Callable, static: tuple, device: torch.device,
         # the graph's private pool, by a handle a cond can name mid-capture
         pool = torch.cuda.graph_pool_handle()
         ended = False
+        nodes = ctypes.c_ulonglong()
+        _body_nodes = 0
         try:
             with torch.cuda.graph(graph, pool=pool):
                 _capturing_pool = pool
                 out = body(*static)
+                stream = torch.cuda.current_stream(device).cuda_stream
+                _raise_on(lib.nlsh_graph_nodes(ctypes.c_void_p(stream),
+                                               ctypes.byref(nodes)),
+                          "nlsh_graph_nodes")
             ended = True
         finally:
             _capturing_pool = None
@@ -331,7 +381,7 @@ def capture(body: Callable, static: tuple, device: torch.device,
         torch.cuda.synchronize(device)
     outputs = out if isinstance(out, tuple) else (out,)
     return Graph(graph, static, outputs, launches, pool_bytes, holds,
-                 time.perf_counter() - t0)
+                 time.perf_counter() - t0, nodes.value + _body_nodes)
 
 
 #: the graphs of the fused serves called without a cache of their own

@@ -273,7 +273,9 @@ def test_serve_loop_matches_the_jax_loop(workdir):
 
     assert set(t_lines[-1]) == {"stats"}
     assert t_lines[-1]["stats"] == t_stats
-    assert set(t_stats) == set(j_stats) == STATS_KEYS
+    assert set(j_stats) == STATS_KEYS
+    assert set(t_stats) == STATS_KEYS | {"serve"}  # the index's serve_stats
+    assert t_stats["serve"]["graphs"]["captures"] == 0  # on the CPU
     assert t_stats["batches"] == j_stats["batches"] == len(sizes)
     assert t_stats["n_queries"] == j_stats["n_queries"] == sum(sizes)
     assert t_stats["engine"] == "gather"

@@ -140,6 +140,8 @@ _NOT_PORTED = {
     "HAVE_NATIVE": "ROADMAP 'Not to port': the native fallback flag",
     "build_csr_ffi": "ROADMAP 'Not to port': the XLA FFI half of native",
     "pack_dedupe_ffi": "ROADMAP 'Not to port': the XLA FFI half of native",
+    "trace": "utils.profiling: the callers run torch.profiler themselves; "
+             "the serve marks its layers and host spans instead",
 }
 _NOT_PORTED_MODULES = {
     "index/canary.py": "ROADMAP 'Not to port': an XLA-TPU miscompile guard",

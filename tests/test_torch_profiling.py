@@ -1,14 +1,11 @@
-"""The port's phase timer and trace (``nlsh_tpu_torch.utils.profiling``)
-on the CPU: ``PhaseTimer`` accumulates, summarises and reports as the
-JAX package's does; ``trace(None)`` does nothing; ``trace(dir)`` writes
-a ``torch.profiler`` trace file there."""
-
-import json
-import os
+"""The port's phase timer (``nlsh_tpu_torch.utils.profiling``) on the
+CPU: ``PhaseTimer`` accumulates, summarises and reports as the JAX
+package's does.  The serve's layer marks and host spans, the module's
+other part, are ``tests/test_torch_spans.py``'s."""
 
 import torch
 
-from nlsh_tpu_torch.utils.profiling import PhaseTimer, trace
+from nlsh_tpu_torch.utils.profiling import PhaseTimer
 
 
 def test_phase_timer_accumulates_and_reports():
@@ -38,21 +35,3 @@ def test_a_phase_that_raises_is_still_timed():
     except ValueError:
         pass
     assert timer.summary()["fails"]["count"] == 1
-
-
-def test_trace_without_a_directory_does_nothing(tmp_path):
-    before = set(os.listdir(tmp_path))
-    with trace(None):
-        torch.ones(4) + 1
-    assert set(os.listdir(tmp_path)) == before
-
-
-def test_trace_writes_a_trace_file(tmp_path):
-    with trace(str(tmp_path / "tb")):
-        (torch.ones((64, 64)) @ torch.ones((64, 64))).sum()
-    files = [f for f in os.listdir(tmp_path / "tb")
-             if f.endswith(".pt.trace.json")]
-    assert len(files) == 1
-    with open(tmp_path / "tb" / files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
