@@ -18,17 +18,19 @@ queries, recall@10 against the committed exact ground truth):
 
 * the single table (the committed trained params, 16 flip probes, cap
   512): index build, the serve through ``Indexer.query`` on the grouped
-  engine (K1 at k=10, K2 at k=20; QPS), kernel times, engine parity, the
-  same serve on the windowed engine (K3 at k=10, K4 at k=20), on the
-  fixed-cap engine (K5; QPS, with K5/K6 times on the serve's own
-  events: the whole wrapper call, of which ``grouping_ms`` sorts the
-  events and ``kernel_ms`` is the launch; K5's live lanes bitwise equal
-  to K2's panel; and K5 at a table of 16 random distinct buckets per
-  query), and on the per-row int8 layout (grouped K1, fixed-cap K5,
-  windowed K3, then one global-scale grouped serve; QPS and the int8
-  times of K1-K4), and on the bf16 layout (``bf16``: the grouped serve,
-  K1 on bf16 rows, recall within 0.001 of the port's plain CPU serve,
-  candidates, the layout's GiB, QPS);
+  engine (K1 at k=10, K2 and K8 at k=20; QPS), kernel times (K8 on K2's
+  panel of every query at kk 100, the k = 100 serve's shapes: bit for bit
+  its plain version, and ``torch.topk`` on composite keys giving its
+  lanes), engine parity, the same serve on the windowed engine (K3 at
+  k=10, K4 and K8 at k=20), on the fixed-cap engine (K5; QPS, with K5/K6
+  times on the serve's own events: the whole wrapper call, of which
+  ``grouping_ms`` sorts the events and ``kernel_ms`` is the launch; K5's
+  live lanes bitwise equal to K2's panel; and K5 at a table of 16 random
+  distinct buckets per query), and on the per-row int8 layout (grouped K1,
+  fixed-cap K5, windowed K3, then one global-scale grouped serve; QPS and
+  the int8 times of K1-K4), and on the bf16 layout (``bf16``: the grouped
+  serve, K1 on bf16 rows, recall within 0.001 of the port's plain CPU
+  serve, candidates, the layout's GiB, QPS);
 * the L=8 ensemble (the committed 8-table params, 4 flip probes per
   table): ``MultiTableIndexer`` build, ``calibrate`` and the serve on the
   windowed engine (K3; recall, summed and exact candidates, QPS, all
@@ -74,7 +76,7 @@ Then the serving process, on the same workload, each phase one line:
   engine (K5 from a new caller) and on the per-row int8 stacked layout
   (K3), with the layouts' GiB;
 * ``updates``: 10,000 rows held back and added, 1,000 ids removed (the
-  serve then fetches k + 1,024 per query and runs K2, not K1), the
+  serve then fetches k + 1,024 per query and runs K2 and K8, not K1), the
   answers held to the plain serve and the gather engine, then
   ``compact`` against an index built from scratch; pass times with the
   buffer, with tombstones and after ``compact``;
@@ -321,6 +323,7 @@ BF16_RECALL_TOL = 0.001
 TOPK_SRC = "nlsh_tpu_torch/csrc/grouped_topk.cu"
 GROUPED_SRC = "nlsh_tpu_torch/csrc/grouped_scores.cu"
 BUCKET_SRC = "nlsh_tpu_torch/csrc/bucket_scores.cu"
+PANEL_TOPK_SRC = "nlsh_tpu_torch/csrc/panel_topk.cu"
 REPLACES = {  # the TPU kernel each CUDA kernel replaces, and its source
     "grouped_scores_topk": ("nlsh_tpu/ops/pallas/query_kernel.py:879",
                             TOPK_SRC),
@@ -335,6 +338,8 @@ REPLACES = {  # the TPU kernel each CUDA kernel replaces, and its source
     "bucket_scores_impl": ("nlsh_tpu/ops/pallas/query_kernel.py:569",
                            BUCKET_SRC),
     "int8_block_scores": ("benchmarks/int8_probe.py:66", GROUPED_SRC),
+    "panel_topk": ("none: jax.lax.top_k, nlsh_tpu/index/serving.py:210, :370",
+                   PANEL_TOPK_SRC),
 }
 # the yardstick of each kernel: one PyTorch call computing the same
 # function on the same inputs (timed here, never called by the port)
@@ -354,6 +359,11 @@ LIBRARY_BMM = ("torch.bmm(grp_qvecs, blocks^T) on f32 blocks gathered before "
                "library")
 LIBRARY_K7 = ("torch.matmul(queries, blocks^T) on the upcast blocks gathered "
               "before the timed region: the gather is left out")
+LIBRARY_K8 = ("torch.topk(keys, kk) on int64 keys (the masked score's ordered "
+              "bits over br - 1 - lane, distinct, so no tie rule) built before "
+              "the timed region: the scale, mask, where and key build are "
+              "left out, which flatters the library")
+K8_KK = 100  # the k = 100 serve's per-slot top-k (glove100-mvb12.k100)
 
 
 # the card's name and power limit, as phase_device reads them
@@ -843,7 +853,8 @@ def phase_index(corpus: np.ndarray):
 
 def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
     """The single table's grouped run: every query at k=10 (K1), then
-    every query at k=20 (above ROW_TOPK, so K2), through Indexer.query.
+    every query at k=20 (above ROW_TOPK, so K2 and K8), through
+    Indexer.query.
     Returns the k=10 ids and candidates, and the launch counts of the
     run."""
     import torch
@@ -857,7 +868,8 @@ def phase_serve(idx, queries: np.ndarray, gt: np.ndarray):
     reset_launches()
     ids, n_cand = serve(wl.K)
     ids20, _ = serve(2 * wl.K)
-    launches = read_launches("grouped_scores_topk", "grouped_scores")
+    launches = read_launches("grouped_scores_topk", "grouped_scores",
+                             "panel_topk")
     check(ids.shape == (queries.shape[0], wl.K) and ids20.shape[1] == 2 * wl.K,
           "result shapes")
     check(bool(((ids >= -1) & (ids < idx.corpus.shape[0])).all()), "id range")
@@ -968,19 +980,81 @@ def _grouped_times(lay, q, pid, pv, panel: bool = True) -> dict:
     err = _panel_err("K2", panel,
                      qk.grouped_scores_plain(*args, block_rows=lay.br), lay,
                      grp_block)
-    del panel, k1
+    del k1
     out["grouped_scores"] = kernel_entry(
         err, cuda_ms(lambda: qk.grouped_scores(*args, block_rows=lay.br), 20),
         cuda_ms(lambda: qk.grouped_scores_plain(*args, block_rows=lay.br), 3),
         bounds.panel_counts(lay.data, grp_qvecs, grp_block, 32, lay.br,
                             q.shape[1]),
         bmm_ms(*args, lay.br, 5), LIBRARY_BMM)
+    out["panel_topk"] = _panel_topk_times(lay, panel, grp_block, grp_cnt)
+    del panel
     torch.cuda.synchronize()
     return {**shape,
             "panel_blocks_per_sm": qk.panel_blocks_per_sm(lay.data.dtype,
                                                           lay.d_pad),
             "k2_panel_is_k1_scores_bitwise": k2_is_k1,
             "kernels": out}
+
+
+def _panel_topk_keys(lay, panel, grp_block, grp_cnt) -> "torch.Tensor":
+    """The K8 library yardstick's operand: each masked panel score's
+    ordered bits (-0.0 as +0.0) over ``br - 1 - lane``, as int64 keys in
+    ``(g_total * G, br)`` rows, distinct within a row."""
+    import torch
+
+    br = lay.br
+    scale, norms = _row_scale(lay), lay.norms
+    blk = grp_block.long()
+    if scale is not None:
+        panel = panel * scale.view(-1, br)[blk][:, None, :]
+    if norms is not None:
+        panel = panel - norms.view(-1, br)[blk][:, None, :]
+    lane = torch.arange(br, device=panel.device)
+    panel = torch.where(lane < grp_cnt[:, :, None], panel, -torch.inf)
+    bits = panel.reshape(-1, br).view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    ordered = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits,
+                          bits + 0x80000000)
+    return (ordered - 0x80000000) * (1 << 32) + (br - 1 - lane)
+
+
+def _panel_topk_times(lay, panel, grp_block, grp_cnt) -> dict:
+    """K8 at the k = 100 serve's shapes: the single table's K2 panel of
+    every query (9,096 groups x 32 slots x 512 lanes), ``kk`` 100; bitwise
+    against its plain version (the old mask, ``torch.where`` and stable
+    sort); its time, the plain version's, ``torch.topk`` on composite
+    keys (whose lanes must be K8's) and its bound."""
+    import torch
+
+    from nlsh_tpu_torch.ops.cuda import bounds
+    from nlsh_tpu_torch.ops.cuda import query_kernel as qk
+
+    kw = dict(norms=lay.norms, scale_rows=_row_scale(lay))
+    topk = (panel, grp_block, None, grp_cnt, K8_KK)
+    got = qk.panel_topk(*topk, **kw)
+    want = qk.panel_topk_plain(*topk, **kw)
+    bitwise = bool(torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32))
+                   and torch.equal(got[1], want[1]))
+    check(bitwise, "K8 differs from its plain version at the main path's "
+                   "shapes")
+    del want
+    keys = _panel_topk_keys(lay, panel, grp_block, grp_cnt)
+    lib = torch.topk(keys, K8_KK, dim=1).values
+    lib_lanes = (lay.br - 1 - lib % (1 << 32)).to(torch.int32)
+    check(bool(torch.equal(lib_lanes, got[1])),
+          "torch.topk on composite keys differs from K8's lanes")
+    del lib, lib_lanes, got
+    entry = kernel_entry(
+        0.0, cuda_ms(lambda: qk.panel_topk(*topk, **kw), 20),
+        cuda_ms(lambda: qk.panel_topk_plain(*topk, **kw), 3),
+        bounds.panel_topk_counts(*topk, **kw),
+        cuda_ms(lambda: torch.topk(keys, K8_KK, dim=1), 5), LIBRARY_K8)
+    del keys
+    return {**entry, "bitwise": bitwise, "kk": K8_KK,
+            "live_slots": int((grp_cnt > 0).sum()),
+            "live_lanes": int(grp_cnt.clamp(0, lay.br).sum())}
 
 
 def _windowed_times(lay, q, pid, pv, g_total: int,
@@ -1131,8 +1205,9 @@ def phase_parity(corpus, queries, idx, ids_k1) -> dict:
 def phase_windowed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
                    grouped_cand) -> dict:
     """The single table on the windowed engine (dense layout, K3 at
-    k=10, K4 at k=20): recall, candidates query by query and ids against
-    the grouped engine's run.  Returns the launch counts of the run."""
+    k=10, K4 and K8 at k=20): recall, candidates query by query and ids
+    against the grouped engine's run.  Returns the launch counts of the
+    run."""
     from nlsh_tpu_torch.utils.metrics import calculate_recall
 
     idx.engine = "windowed"
@@ -1142,7 +1217,8 @@ def phase_windowed(idx, queries: np.ndarray, gt: np.ndarray, grouped_ids,
                             probe_mode="flip")
     ids20, n_cand20 = idx.query(queries, k=2 * wl.K, hash_times=wl.HASH_TIMES,
                                 probe_mode="flip")
-    launches = read_launches("windowed_scores_topk", "windowed_scores")
+    launches = read_launches("windowed_scores_topk", "windowed_scores",
+                             "panel_topk")
     recall = float(calculate_recall(gt[:, :wl.K], ids, np.mean))
     check(RECALL_RANGE[0] <= recall <= RECALL_RANGE[1],
           f"windowed recall@10 {recall} outside {RECALL_RANGE}")
@@ -2366,7 +2442,7 @@ def phase_updates(corpus, queries, gt, serve_median_s: float) -> dict:
 
     reset_launches()
     ids_r, cand_r = serve()
-    launches = read_launches("grouped_scores")
+    launches = read_launches("grouped_scores", "panel_topk")
     check(qk.KERNEL_LAUNCHES["grouped_scores_topk"] == 0,
           "the tombstone serve fetches k_eff > 16 per block: K2, not K1")
     check(ids_r.shape == (queries.shape[0], wl.K), "tombstone serve shape")

@@ -9,13 +9,14 @@ engines.
 
 * Grouped: the (query, probe) events are sorted by bucket block, every
   block is scored against the up to G queries that probe it (kernel K1,
-  or K2 when the per-block k is above ``ROW_TOPK``).
+  or K2 when the per-block k is above ``ROW_TOPK``, each panel row's top
+  k then taken by K8).
 * Windowed: the events are cut into sub-events of fixed ``block_rows``
   windows of a dense layout, every window is scored against the up to G
   sub-events that land in it, each slot masked to its bucket's
-  ``[lo, hi)`` lanes (kernel K3, or K4 when the per-row k is above
-  ``ROW_TOPK``).  The low-occupancy engine: ensembles, whose buckets are
-  far smaller than a block.
+  ``[lo, hi)`` lanes (kernel K3, or K4 and K8 when the per-row k is
+  above ``ROW_TOPK``).  The low-occupancy engine: ensembles, whose
+  buckets are far smaller than a block.
 
 Each query's per-block (per-window) winners then merge into its top-k
 corpus ids.  Score order is the exact distance order (the layout's
@@ -123,22 +124,16 @@ def _chunked_serve(queries, probe_ids, probe_valid, query_chunk: int,
 
 
 def _panel_topk(layout: qk.ServingLayout, scores, grp_block, grp_lo, grp_hi,
-                k: int):
+                k: int, plain: bool):
     """The wide-k branch after K2/K4: per-row scale, then norms, then the
     lane mask (``[grp_lo, grp_hi)``, or ``< grp_hi`` with ``grp_lo``
-    None), then each row's top ``min(k, br)``."""
-    br = layout.br
-    blk = grp_block.long()
-    if layout.scale is not None and layout.scale.ndim == 1:
-        scores = scores * layout.scale.view(-1, br)[blk][:, None, :]
-    if layout.norms is not None:  # euclidean: 2q.c - ||c||^2
-        scores = scores - layout.norms.view(-1, br)[blk][:, None, :]
-    lane = torch.arange(br, device=scores.device)
-    keep = lane < grp_hi[:, :, None]
-    if grp_lo is not None:
-        keep &= lane >= grp_lo[:, :, None]
-    scores = torch.where(keep, scores, -torch.inf)
-    return _largest_k(scores.reshape(-1, br), min(k, br))
+    None), then each row's top ``min(k, br)``: K8, or its plain version
+    where ``plain``."""
+    per_row = layout.scale is not None and layout.scale.ndim == 1
+    topk = qk.panel_topk_plain if plain else qk.panel_topk
+    return topk(scores, grp_block, grp_lo, grp_hi, min(k, layout.br),
+                norms=layout.norms,
+                scale_rows=layout.scale if per_row else None)
 
 
 def _merge(layout: qk.ServingLayout, probe_ids, probe_valid, full_counts,
@@ -205,7 +200,7 @@ def _grouped_query(layout: qk.ServingLayout, queries, probe_ids, probe_valid,
         scores = panel(layout.data, grp_qvecs, grp_block, block_rows=br)
         mark("merge", queries)
         row_top, row_lane = _panel_topk(layout, scores, grp_block, None,
-                                        grp_cnt, k)
+                                        grp_cnt, k, plain)
     return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,
                   row_lane, ev_row, ev_block, ev_valid)
 
@@ -243,7 +238,7 @@ def _windowed_query(layout: qk.ServingLayout, queries, probe_ids,
         scores = panel(layout.data, grp_qvecs, grp_window, block_rows=br)
         mark("merge", queries)
         row_top, row_lane = _panel_topk(layout, scores, grp_window, grp_lo,
-                                        grp_hi, k)
+                                        grp_hi, k, plain)
     return _merge(layout, probe_ids, probe_valid, full_counts, k, row_top,
                   row_lane, ev_row, ev_window, ev_valid)
 

@@ -1,10 +1,11 @@
-"""Least times of the scoring kernels on one NVIDIA H100.
+"""Least times of the serving kernels on one NVIDIA H100.
 
 For a kernel's actual inputs, count what the function needs: the bytes
 it must move (each corpus row that some live lane keeps, each query row
 and table read once, each output written once) and its f32 operations
 (2 * d per scored (slot, lane) pair: the live pairs of the fused and
-masked kernels, the whole panel of the raw ones).  ``d`` is the
+masked kernels, the whole panel of the raw ones; K8, the panels' top-k,
+reads each live lane's score once and does no dot).  ``d`` is the
 metric-extended width of the rows, not the layout's ``d_pad``: the
 padding columns are zeros the function does not need, so neither their
 bytes nor their operations count.  The bound is the
@@ -86,6 +87,32 @@ def panel_counts(data, queries, grp_block, G: int, br: int, d: int) -> Counts:
     n_bytes = blocks * br * d * data.element_size() + n_queries * d * 4 \
         + 4 * g_total + g_total * G * br * 4
     return Counts(n_bytes, 2 * d * g_total * G * br)
+
+
+def panel_topk_counts(scores, grp_block, grp_lo, grp_hi, kk: int,
+                      norms=None, scale_rows=None) -> Counts:
+    """K8 (``grp_lo`` None: slot lanes ``[0, grp_hi)``): the live lanes of
+    the ``(g_total, G, br)`` panel ``scores``, once, with the scale and
+    norm of each distinct row they cover; the slot tables (and the block
+    table where rows are read); the ``(g_total * G, kk)`` scores and
+    lanes.  Its f32 operations are the scale and the bias of each live
+    lane."""
+    g_total, G, br = scores.shape
+    kk = min(max(int(kk), 1), br)
+    hi = grp_hi.long().clamp(0, br)
+    lo = torch.zeros_like(hi) if grp_lo is None else grp_lo.long().clamp(0, br)
+    live = hi > lo
+    lanes = int((hi - lo)[live].sum())
+    per_row = [t for t in (norms, scale_rows) if t is not None]
+    n_bytes = 4 * lanes + 4 * g_total * G * (1 if grp_lo is None else 2) \
+        + g_total * G * kk * 8
+    if per_row:
+        n_blocks = per_row[0].shape[0] // br
+        row0 = (grp_block.long().clamp(0, n_blocks - 1) * br)[:, None]
+        rows = rows_covered(n_blocks * br, (row0 + lo)[live],
+                            (row0 + hi)[live])
+        n_bytes += 4 * rows * len(per_row) + 4 * g_total
+    return Counts(n_bytes, lanes * len(per_row))
 
 
 def bucket_counts(data, queries_ext, first_rows, counts, cap: int,

@@ -77,6 +77,12 @@ SOURCES = {
         # stream captures into
         "nlsh_graph_nodes": [_P, _P],
     },
+    "panel_topk.cu": {
+        # scores, grp_block, grp_lo, grp_hi, norms, scale, out_scores,
+        # out_lanes, g_total, G, br, n_blocks, kk, stream (K8)
+        "nlsh_panel_topk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P],
+    },
     "spans.cu": {
         # which (1 hash, 2 prep, 3 score, 4 merge, 5 end, 6 bound),
         # accumulator (int64[SPAN_SLOTS]), stream

@@ -29,7 +29,9 @@ Port of the serving half of :mod:`nlsh_tpu.ops.pallas.query_kernel`:
   K4 :func:`windowed_scores` (raw windowed panels) and K7
   :func:`int8_block_scores` (K2's kernel on int8 blocks), written in
   CUDA C++: K1 and K3 in ``csrc/grouped_topk.cu``, K2, K4 and K7 in
-  ``csrc/grouped_scores.cu``; K5 :func:`bucket_scores_auto`
+  ``csrc/grouped_scores.cu``; K8 :func:`panel_topk` (each slot's top-k
+  of a K2 / K4 panel: the wide-k branch's scale, norms, mask and
+  selection) in ``csrc/panel_topk.cu``; K5 :func:`bucket_scores_auto`
   and K6 :func:`bucket_scores_impl`, the fixed-cap engine's masked
   per-event scores behind the entry :func:`bucket_scores`, in
   ``csrc/bucket_scores.cu`` (one kernel, on the events sorted by the
@@ -42,7 +44,8 @@ Parity notes (where a port of this module breaks most easily):
 
 * ties — the JAX kernel keeps the lowest lane among equal scores and
   ``lax.top_k`` the lowest index; ``torch.topk`` promises no order, so
-  every selection here is a stable sort, sliced;
+  every plain selection here is a stable sort, sliced, and K8 sorts keys
+  that hold the lane below the score;
 * ``mode="drop"`` scatters — torch has none: scatter into one sentinel
   row past the end and slice it off;
 * ``searchsorted(side="right")`` is ``right=True`` and
@@ -75,7 +78,7 @@ ROW_TOPK = 16      # widest per-row top-k of the fused kernel (K1)
 KERNEL_LAUNCHES = {"grouped_scores_topk": 0, "grouped_scores": 0,
                    "windowed_scores_topk": 0, "windowed_scores": 0,
                    "bucket_scores_auto": 0, "bucket_scores_impl": 0,
-                   "int8_block_scores": 0}
+                   "int8_block_scores": 0, "panel_topk": 0}
 
 # what the csrc kernels take; the wrappers check it before a launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # `dtype`
@@ -1092,6 +1095,83 @@ def int8_block_scores(data, queries, block_ids,
                          "int8_block_scores")
     KERNEL_LAUNCHES["int8_block_scores"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the wide-k branch's per-slot top-k of the raw panels
+# ---------------------------------------------------------------------------
+
+def panel_topk_plain(scores, grp_block, grp_lo, grp_hi, kk: int, norms=None,
+                     scale_rows=None):
+    """Plain K8: each slot's top ``kk`` lanes of the raw ``(g_total, G,
+    br)`` panel ``scores`` of K2 / K4, as ``(row_top (g_total * G, kk)
+    f32, row_lane (g_total * G, kk) i32)``.  The panel times
+    ``scale_rows``, minus ``norms`` (each ``(n_rows,)`` by the group's
+    block ``grp_block``), lanes outside ``[grp_lo, grp_hi)`` (``<
+    grp_hi`` with ``grp_lo`` None) masked to -inf, then a stable
+    descending sort of every row: the lowest lane first among equal
+    values (``jax.lax.top_k``'s order)."""
+    br = scores.shape[2]
+    kk = min(max(int(kk), 1), br)
+    blk = grp_block.long()
+    if scale_rows is not None:
+        scores = scores * scale_rows.view(-1, br)[blk][:, None, :]
+    if norms is not None:  # euclidean: 2q.c - ||c||^2
+        scores = scores - norms.view(-1, br)[blk][:, None, :]
+    lane = torch.arange(br, device=scores.device)
+    keep = lane < grp_hi[:, :, None]
+    if grp_lo is not None:
+        keep &= lane >= grp_lo[:, :, None]
+    scores = torch.where(keep, scores, -torch.inf)
+    v, i = torch.sort(scores.reshape(-1, br), dim=1, descending=True,
+                      stable=True)
+    return v[:, :kk], i[:, :kk].to(torch.int32)
+
+
+def panel_topk(scores, grp_block, grp_lo, grp_hi, kk: int, norms=None,
+               scale_rows=None):
+    """K8, the per-slot top-``kk`` of raw score panels (replaces the mask,
+    ``torch.where`` and stable sort of the wide-k branch; the JAX package
+    runs ``jax.lax.top_k`` there, no Pallas kernel): one pass over each
+    live slot's live lanes.  Returns :func:`panel_topk_plain`'s outputs
+    bit for bit.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (``csrc/panel_topk.cu``)."""
+    if scores.device.type == "cpu":
+        return panel_topk_plain(scores, grp_block, grp_lo, grp_hi, kk, norms,
+                                scale_rows)
+    dev = _launch_device(scores)
+    with torch.cuda.device(dev):
+        if scores.dim() != 3:
+            raise ValueError(f"scores must be (g_total, G, br), got "
+                             f"{tuple(scores.shape)}")
+        g_total, G, br = scores.shape
+        kk = min(max(int(kk), 1), br)
+        _check("scores", scores, (torch.float32,), (g_total, G, br), dev)
+        _check("grp_block", grp_block, (torch.int32,), (g_total,), dev)
+        _check("grp_hi", grp_hi, (torch.int32,), (g_total, G), dev)
+        if grp_lo is not None:
+            _check("grp_lo", grp_lo, (torch.int32,), (g_total, G), dev)
+        rows = [t for t in (norms, scale_rows) if t is not None]
+        n_rows = rows[0].shape[0] if rows else br
+        for name, t in (("norms", norms), ("scale_rows", scale_rows)):
+            if t is not None:
+                _check(name, t, (torch.float32,), (n_rows,), dev)
+        if n_rows % br or n_rows == 0:
+            raise ValueError(f"the layout's {n_rows} rows must be a positive "
+                             f"multiple of block_rows={br}")
+        row_top = torch.empty((g_total * G, kk), dtype=torch.float32,
+                              device=dev)
+        row_lane = torch.empty((g_total * G, kk), dtype=torch.int32,
+                               device=dev)
+        from nlsh_tpu_torch.ops.cuda.build import load_library
+
+        err = load_library().nlsh_panel_topk(
+            _ptr(scores), _ptr(grp_block), _ptr(grp_lo), _ptr(grp_hi),
+            _ptr(norms), _ptr(scale_rows), _ptr(row_top), _ptr(row_lane),
+            g_total, G, br, n_rows // br, kk, _stream(dev))
+    _raise_on(err, "panel_topk")
+    KERNEL_LAUNCHES["panel_topk"] += 1
+    return row_top, row_lane
 
 
 # ---------------------------------------------------------------------------

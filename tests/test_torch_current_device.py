@@ -4,7 +4,7 @@ The CUDA sources ask the runtime for the current device (its SM count
 and shared-memory attributes set the persistent grid), and the wrappers
 pass the stream of the tensors' device; so each wrapper makes that
 device current for its checks, allocations and launch.  On the CPU:
-every launching wrapper (K1-K7, and the fixed-cap launch proper) enters
+every launching wrapper (K1-K8, and the fixed-cap launch proper) enters
 ``torch.cuda.device`` of its tensors' device before anything else of
 its launch path runs (``torch.cuda.device`` is replaced by a recorder;
 tensors on the ``meta`` device stand for a card's, let past the
@@ -49,6 +49,9 @@ LAUNCHES = {
     "int8_block_scores": lambda: qk.int8_block_scores(
         _meta(BR, D_PAD, dtype=torch.int8), _meta(G, D_PAD),
         _meta(2, dtype=_I32), BR),
+    "panel_topk": lambda: qk.panel_topk(
+        _meta(2, G, BR), _meta(2, dtype=_I32), None, _meta(2, G, dtype=_I32),
+        kk=20),
     "bucket_scores_auto": lambda: qk.bucket_scores_auto(
         _meta(CAP, D_PAD), _meta(NQ, D_PAD), _meta(NQ, P, dtype=_I32),
         _meta(NQ, P, dtype=_I32), CAP),
@@ -98,7 +101,7 @@ def test_every_launching_wrapper_enters_its_tensors_device(name,
 @pytest.mark.cuda
 def test_wrappers_launch_on_a_device_that_is_not_current():
     """``cuda:1`` tensors served while ``cuda:0`` is current: every kernel
-    engine (K1, K3, K5; K2, K4 at k = 20) answers as its plain version,
+    engine (K1, K3, K5; K2, K4 and K8 at k = 20) answers as its plain version,
     and K6 and K7 score as theirs; the current device is left as it
     was."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:

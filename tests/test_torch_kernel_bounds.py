@@ -104,6 +104,41 @@ def test_panel_counts_of_the_int8_probe():
     assert got.flops == 2 * 128 * 64 * 8 * 128
 
 
+def test_panel_topk_counts_by_hand():
+    """K8 after K2: each live lane once (a count past the block clamps to
+    it, a negative one is dead), the slot table, the (g, G, kk) scores and
+    lanes; no row arrays, no operations."""
+    scores = torch.zeros(3, 2, 128)
+    grp_block = torch.tensor([0, 1, 2], dtype=torch.int32)
+    grp_hi = torch.tensor([[10, 0], [128, 300], [-1, 5]], dtype=torch.int32)
+    got = bounds.panel_topk_counts(scores, grp_block, None, grp_hi, 20)
+    lanes = 4 * (10 + 128 + 128 + 5)
+    assert got.bytes == lanes + 4 * 6 + 6 * 20 * 8 == 2068
+    assert got.flops == 0
+    # kk clamps to the block's 128 lanes
+    wide = bounds.panel_topk_counts(scores, grp_block, None, grp_hi, 500)
+    assert wide.bytes == lanes + 4 * 6 + 6 * 128 * 8
+
+
+def test_panel_topk_counts_of_windows_with_row_arrays():
+    """K8 after K4 on a euclidean per-row int8 layout: lanes [lo, hi),
+    each distinct row's scale and norm once (two slots share window 1's
+    rows), the two slot tables and the window table."""
+    br = 128
+    scores = torch.zeros(2, 2, br)
+    grp_window = torch.tensor([1, 3], dtype=torch.int32)
+    lo = torch.tensor([[10, 40], [7, 120]], dtype=torch.int32)
+    hi = torch.tensor([[50, 90], [3, 200]], dtype=torch.int32)
+    got = bounds.panel_topk_counts(scores, grp_window, lo, hi, 17,
+                                   norms=torch.zeros(4 * br),
+                                   scale_rows=torch.ones(4 * br))
+    lanes = 40 + 50 + 8
+    rows = 80 + 8                  # [10, 90) of window 1, [120, 128) of 3
+    assert got.bytes == 4 * lanes + 4 * 4 * 2 + 2 * 2 * 17 * 8 \
+        + 2 * 4 * rows + 4 * 2 == 1680
+    assert got.flops == 2 * lanes
+
+
 def test_bucket_counts_by_hand():
     """K5 / K6: the union of the events' live rows, once, over their 100
     real features."""
