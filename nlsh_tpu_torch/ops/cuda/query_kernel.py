@@ -48,8 +48,10 @@ Parity notes (where a port of this module breaks most easily):
   that hold the lane below the score;
 * ``mode="drop"`` scatters — torch has none: scatter into one sentinel
   row past the end and slice it off;
-* ``searchsorted(side="right")`` is ``right=True`` and
-  ``associative_scan(max)`` is ``torch.cummax``;
+* ``searchsorted(side="right")`` is ``right=True``; the preps' run
+  ranks (JAX: ``associative_scan(max)`` of each run's first position)
+  are ``pos - searchsorted(sk, sk)`` on the sorted keys, the same
+  integers (:func:`_run_ranks`);
 * int8 rounding is half to even in both (``torch.round``, ``jnp.round``);
 * storage stays int32 as in JAX; indices widen to int64 only to index.
 * the numpy ``*_host`` layout functions (:func:`serving_layout_host`) are
@@ -523,12 +525,14 @@ def _repeat_each(t, n: int):
 
 def _run_ranks(sk):
     """For sorted keys: the mask of each run's first key, and each key's
-    rank inside its run of equal keys."""
+    rank inside its run of equal keys.  A run starts where its key would
+    be inserted on the left, so each key finds its run's first position
+    by a binary search of ``sk``, one thread per key: no scan, which
+    torch runs on a 1-D tensor as one block walking the whole row."""
     pos = torch.arange(sk.shape[0], device=sk.device)
     unique = torch.ones_like(sk, dtype=torch.bool)
     unique[1:] = sk[1:] != sk[:-1]
-    first = torch.cummax(torch.where(unique, pos, -1), 0).values
-    return unique, pos - first
+    return unique, pos - torch.searchsorted(sk, sk)
 
 
 def _sorted_probe_events(layout_starts, layout_counts, probe_ids,

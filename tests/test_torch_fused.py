@@ -302,3 +302,32 @@ def test_a_host_sync_in_the_body_fails_the_capture(cuda_device):
     assert len(cache) == 0
     torch.cuda.synchronize()
     assert torch.equal(cache.run("ok", lambda a: a + 1, (x,)), x + 1)
+
+
+def _window_keys(rng, n: int, device):
+    """Sorted window keys the size of the ensemble's sub-events: runs of
+    1-40 equal windows, then the dead sub-events' ``2**30`` run."""
+    lengths = rng.integers(1, 41, n // 10)
+    keys = np.repeat(np.arange(lengths.size) * 3, lengths)[: n - n // 8]
+    keys = np.concatenate([keys, np.full(n - keys.size, 2 ** 30)])
+    return torch.from_numpy(keys.astype(np.int64)).to(device)
+
+
+@pytest.mark.cuda
+def test_captured_run_ranks_equal_the_scan(cuda_device):
+    """``_run_ranks`` captured in a graph (the capture fails on any host
+    read) and replayed on new keys of ~1M: the mask and ranks of the
+    eager scan, bit for bit."""
+    rng = np.random.default_rng(23)
+    n = 960_000
+    cache = GraphCache()
+    for _ in range(2):
+        sk = _window_keys(rng, n, cuda_device)
+        unique, rank = cache.run("ranks", qk._run_ranks, (sk,))
+        pos = torch.arange(n, device=cuda_device)
+        want_unique = torch.ones_like(sk, dtype=torch.bool)
+        want_unique[1:] = sk[1:] != sk[:-1]
+        first = torch.cummax(torch.where(want_unique, pos, -1), 0).values
+        assert torch.equal(unique, want_unique)
+        assert torch.equal(rank, pos - first)
+    assert cache.captures == 1 and cache.replays == 2

@@ -136,6 +136,50 @@ def test_layout_rows_agree_on_gaussian_data():
                                rtol=5e-7, atol=0)  # a few ulp
 
 
+def _run_ranks_by_scan(sk):
+    """The run ranks as a scan: each run's first position carried forward
+    by a running max (the JAX package's ``associative_scan(max)``)."""
+    pos = torch.arange(sk.shape[0])
+    unique = torch.ones_like(sk, dtype=torch.bool)
+    unique[1:] = sk[1:] != sk[:-1]
+    return unique, pos - torch.cummax(torch.where(unique, pos, -1), 0).values
+
+
+def _sorted_keys(case):
+    rng = np.random.default_rng(23)
+    if case == "long_runs":
+        keys = np.repeat(rng.choice(5000, 40, replace=False),
+                         rng.integers(1, 400, 40))
+    elif case == "all_equal":
+        keys = np.full(777, 12)
+    elif case == "all_distinct":
+        keys = rng.choice(10 ** 6, 1000, replace=False)
+    elif case == "sentinel_n_buckets":  # the grouped prep's dead events
+        keys = np.concatenate([rng.integers(0, 64, 500), np.full(90, 64)])
+    elif case == "sentinel_2_30":  # the windowed prep's dead sub-events
+        keys = np.concatenate([rng.integers(0, 300, 500),
+                               np.full(250, 2 ** 30)])
+    elif case == "one":
+        keys = np.array([3])
+    else:
+        keys = np.zeros(0)
+    return torch.from_numpy(np.sort(keys).astype(np.int64))
+
+
+@pytest.mark.parametrize("case", [
+    "long_runs", "all_equal", "all_distinct", "sentinel_n_buckets",
+    "sentinel_2_30", "one", "empty"])
+def test_run_ranks_equal_the_scan_bitwise(case):
+    """``_run_ranks`` searches each key's run start in the sorted keys;
+    its mask and int64 ranks are the scan's, bit for bit."""
+    sk = _sorted_keys(case)
+    unique, rank = qk._run_ranks(sk)
+    want_unique, want_rank = _run_ranks_by_scan(sk)
+    assert rank.dtype == torch.int64 and unique.dtype == torch.bool
+    assert torch.equal(unique, want_unique)
+    assert torch.equal(rank, want_rank)
+
+
 @pytest.mark.parametrize("group_q,block_rows,shrink", [
     (32, 128, False), (8, 128, False), (4, 64, False), (32, 128, True),
 ])
